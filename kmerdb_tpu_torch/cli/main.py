@@ -24,7 +24,6 @@ _RUNNERS = {
 
 #: settings that route kmerdb_tpu's shared runners into its JAX code
 _REFUSED_ENV = {
-    "KMERDB_A2A_STREAM": "1",
     "KMERDB_BUILD_DEVICE": "1",
     "KMERDB_DEVICE_INGEST": "1",
     "KMERDB_A2A_ENGINE": "bf16",

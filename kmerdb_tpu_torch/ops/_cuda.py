@@ -22,12 +22,13 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = CSRC.parent / "build"
-SOURCES = ("gram_pk_tri.cu", "tril_tiles.cu")
-HEADERS = ("tri.cuh",)
+SOURCES = ("gram_pk_tri.cu", "gram_pk_rows.cu", "tril_tiles.cu",
+           "cast_rows.cu", "filter_colsum.cu")
+HEADERS = ("gram_pk.cuh", "tri.cuh")
 #: sm_90a: the Hopper target (plain sm_90 refuses wgmma, which later
 #: kernels will use); -Xptxas -v logs registers, shared memory and spills
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libkmerdb_torch_cuda.so"
 
 
@@ -59,17 +60,39 @@ def build_log() -> str:
 
 
 def _build(path: pathlib.Path) -> None:
+    """One nvcc per source, all started together, then one link."""
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    (path.parent / "nvcc.log").write_text(r.stdout + r.stderr)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {r.returncode}:\n"
-                           f"{r.stderr[-4000:]}")
-    os.replace(tmp, path)   # atomic: a concurrent loader never sees half a file
+    tag = f"{os.getpid()}.tmp"      # concurrent builds never share a file
+    tmp = path.with_name(f".{path.name}.{tag}")
+    objs = [path.with_name(f".{s}.{tag}.o") for s in SOURCES]
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", str(CSRC / s),
+                               "-o", str(o)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objs)]
+    try:
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+        failed = [(s, p.returncode) for s, p in zip(SOURCES, procs)
+                  if p.returncode != 0]
+        if not failed:
+            r = subprocess.run([nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                                *map(str, objs)], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True,
+                               timeout=300)
+            outs.append(r.stdout)
+            if r.returncode != 0:
+                failed = [("link", r.returncode)]
+        (path.parent / "nvcc.log").write_text("".join(outs))
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n"
+                               f"{''.join(outs)[-4000:]}")
+        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
 
 
 @functools.cache
@@ -79,10 +102,19 @@ def lib() -> ctypes.CDLL:
     if not path.exists():
         _build(path)
     so = ctypes.CDLL(str(path))
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    so.kmerdb_gram_pk_tri.argtypes = [vp, vp, vp, i64, i64, i32, i32, i32,
-                                      vp]
-    so.kmerdb_gram_pk_tri.restype = i32
-    so.kmerdb_tril_tiles.argtypes = [vp, vp, i64, i32, vp]
-    so.kmerdb_tril_tiles.restype = i32
+    vp, i64, i32, u32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                         ctypes.c_uint32)
+    # every pointer and the stream as c_void_p: an undeclared argument
+    # would pass as a 32-bit int and cut the pointer
+    for name, args in (
+            ("kmerdb_gram_pk_tri", [vp, vp, vp, i64, i64, i32, i32, i32, vp]),
+            ("kmerdb_gram_pk_rows",
+             [vp, vp, vp, i64, i64, i64, i64, i32, i32, i32, vp]),
+            ("kmerdb_tril_tiles", [vp, vp, i64, i32, vp]),
+            ("kmerdb_gather_tiles", [vp, vp, vp, vp, i64, i64, i32, vp]),
+            ("kmerdb_cast_rows", [vp, vp, i64, vp]),
+            ("kmerdb_filter_colsum", [vp, vp, i64, i64, u32, u32, vp])):
+        fn = getattr(so, name)
+        fn.argtypes = args
+        fn.restype = i32
     return so

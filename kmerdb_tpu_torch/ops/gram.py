@@ -1,4 +1,6 @@
-"""The all2all kernels: the packed triangle Gram and the triangle pull.
+"""The all2all kernels: the packed Gram over the triangle (matrix route) or
+a row stripe (streamed route), the triangle and survivor-tile pulls, and
+the stripe passes (uint16 narrowing, survivor counts of a count filter).
 
 Each kernel has a wrapper, which checks its operands, launches the CUDA
 kernel for CUDA tensors (or raises) and counts its launches, and a plain
@@ -11,9 +13,10 @@ packages identical operands (``from_jax_layout``):
 * ``Bp`` uint8[P/8, S]: bit b of byte-row r is pattern 8r + b;
 * ``w`` the P pattern weights permuted by ``pk_weight_order`` for the
   K block ``kt``, uint32 bits in int32 storage;
-* ``C`` uint32[S, S] counts in int32 storage.  torch has no uint32 add or
-  shift; int32 storage wraps mod 2^32 with the same bits, and numpy reads
-  them back with ``.view(np.uint32)``.
+* ``C`` uint32[S, S] counts, or a uint32[R, S] row stripe of them, in
+  int32 storage.  torch has no uint32 add or shift; int32 storage wraps
+  mod 2^32 with the same bits, and numpy reads them back with
+  ``.view(np.uint32)``.
 """
 
 import functools
@@ -64,9 +67,10 @@ def pk_weight_order(w: np.ndarray, kt: int = KT) -> np.ndarray:
 
 def from_jax_layout(Bp: np.ndarray, w_pk: np.ndarray, C: np.ndarray,
                     device) -> tuple:
-    """The JAX package's numpy operands of gram_u32_pk_tri (uint8 Bp,
-    uint32 w_pk [P, 1], uint32 C) as this module's tensors on `device`.
-    Always copies: the Gram updates C in place."""
+    """The JAX package's numpy operands of gram_u32_pk_tri and
+    gram_u32_pk_rows (uint8 Bp, uint32 w_pk [P, 1], uint32 C or C stripe)
+    as this module's tensors on `device`.  Always copies: the Gram updates
+    C in place."""
     dev = torch.device(device)
     return (torch.from_numpy(np.ascontiguousarray(Bp, np.uint8))
             .to(dev, copy=True),
@@ -91,20 +95,39 @@ def _kernel_device(*ts: torch.Tensor) -> str:
     return dev.type
 
 
-def _check_gram(Bp, w, C, n_limbs, kt, tile) -> None:
+def _check_packed(Bp, w, n_limbs, kt) -> None:
     _require(Bp.dtype == torch.uint8 and Bp.dim() == 2, "Bp must be uint8[P/8, S]")
     _require(w.dtype == torch.int32 and w.numel() == Bp.shape[0] * 8,
              "w must be int32 with P = 8 * Bp.shape[0] weights")
+    _require(kt > 0 and kt % 128 == 0 and (Bp.shape[0] * 8) % kt == 0,
+             "kt must be a multiple of 128 that divides P")
+    _require(1 <= n_limbs <= MAX_LIMBS, f"n_limbs must lie in 1..{MAX_LIMBS}")
+
+
+def _check_gram(Bp, w, C, n_limbs, kt, tile) -> None:
+    _check_packed(Bp, w, n_limbs, kt)
     _require(C.dtype == torch.int32 and C.dim() == 2
              and C.shape[0] == C.shape[1] == Bp.shape[1],
              "C must be int32[S, S] with S = Bp.shape[1]")
     _require(all(t.is_contiguous() for t in (Bp, w, C)),
              "operands must be contiguous")
-    _require(kt > 0 and kt % 128 == 0 and (Bp.shape[0] * 8) % kt == 0,
-             "kt must be a multiple of 128 that divides P")
     _require(tile > 0 and tile % 128 == 0 and C.shape[0] % tile == 0,
              "tile must be a multiple of 128 that divides S")
-    _require(1 <= n_limbs <= MAX_LIMBS, f"n_limbs must lie in 1..{MAX_LIMBS}")
+
+
+def _check_rows(Bp, w, C, rt0, n_limbs, kt, tile) -> None:
+    _check_packed(Bp, w, n_limbs, kt)
+    S = Bp.shape[1]
+    _require(C.dtype == torch.int32 and C.dim() == 2 and C.shape[1] == S,
+             "C_stripe must be int32[R, S] with S = Bp.shape[1]")
+    _require(all(t.is_contiguous() for t in (Bp, w, C)),
+             "operands must be contiguous")
+    _require(tile > 0 and tile % 128 == 0 and S % tile == 0
+             and C.shape[0] % tile == 0,
+             "tile must be a multiple of 128 that divides S and R")
+    _require(isinstance(rt0, int) and rt0 >= 0
+             and rt0 * tile + C.shape[0] <= S,
+             "rows [rt0 * tile, rt0 * tile + R) must lie inside [0, S)")
 
 
 def _cuda_call(fn, *args, device) -> None:
@@ -146,38 +169,94 @@ def _to_int32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def gram_u32_pk_tri_plain(Bp: torch.Tensor, w: torch.Tensor,
-                          C: torch.Tensor, *, n_limbs: int, kt: int = KT,
-                          tile: int = TILE) -> torch.Tensor:
-    """Plain PyTorch version of gram_u32_pk_tri, on any device.
+def _gram_plain(Bp: torch.Tensor, w: torch.Tensor, n_limbs: int, kt: int,
+                row0: int, n_rows: int) -> torch.Tensor:
+    """Rows [row0, row0 + n_rows) of B^T diag(w) B mod 2^32, as int64.
 
     Unpacks K blocks of patterns to 0/1 rows and multiplies them per limb:
     in int64 on the CPU, in float64 on the card (CUDA has no int64 matmul).
     Both are exact: a block's partial is at most 127 * 8192 < 2^53."""
-    _check_gram(Bp, w, C, n_limbs, kt, tile)
-    dev = C.device
-    S = C.shape[0]
+    dev = Bp.device
+    S = Bp.shape[1]
     mm_dtype = torch.int64 if dev.type == "cpu" else torch.float64
     # undo pk_weight_order: w_nat[8r + b] is the weight of pattern 8r + b
     w_nat = (w.reshape(-1, 8, kt // 8).transpose(1, 2).reshape(-1)
              .to(torch.int64) & 0xFFFFFFFF)
     shifts = torch.arange(8, dtype=torch.int32, device=dev)
-    acc = torch.zeros((S, S), dtype=torch.int64, device=dev)
+    acc = torch.zeros((n_rows, S), dtype=torch.int64, device=dev)
     step = 1024                               # packed rows per K block
     for r0 in range(0, Bp.shape[0], step):
         blk = Bp[r0:r0 + step].to(torch.int32)
         bits = ((blk[:, None, :] >> shifts[:, None]) & 1).reshape(-1, S)
         bits = bits.to(mm_dtype)               # row 8r + b is pattern 8r + b
+        lhs = bits[:, row0:row0 + n_rows]
         wk = w_nat[8 * r0:8 * r0 + bits.shape[0]]
         for l in range(n_limbs):
             wl = ((wk >> (LIMB_BITS * l)) & 0x7F).to(mm_dtype)
-            part = ((bits * wl[:, None]).T @ bits).to(torch.int64)
+            part = ((lhs * wl[:, None]).T @ bits).to(torch.int64)
             acc = (acc + (part << (LIMB_BITS * l))) & 0xFFFFFFFF
-    band = torch.arange(S, device=dev) // tile
+    return acc
+
+
+def gram_u32_pk_tri_plain(Bp: torch.Tensor, w: torch.Tensor,
+                          C: torch.Tensor, *, n_limbs: int, kt: int = KT,
+                          tile: int = TILE) -> torch.Tensor:
+    """Plain PyTorch version of gram_u32_pk_tri, on any device."""
+    _check_gram(Bp, w, C, n_limbs, kt, tile)
+    S = C.shape[0]
+    acc = _gram_plain(Bp, w, n_limbs, kt, 0, S)
+    band = torch.arange(S, device=C.device) // tile
     lower = band[:, None] >= band[None, :]
     old = C.to(torch.int64) & 0xFFFFFFFF
     C.copy_(_to_int32(torch.where(lower, (old + acc) & 0xFFFFFFFF, old)))
     return C
+
+
+def gram_u32_pk_rows(Bp: torch.Tensor, w: torch.Tensor, C_stripe: torch.Tensor,
+                     rt0: int, *, n_limbs: int, kt: int = KT,
+                     tile: int = TILE) -> torch.Tensor:
+    """C_stripe += rows [rt0 * tile, rt0 * tile + R) of B^T diag(w) B, in
+    place, exact mod 2^32, over the full rectangle (cells right of the
+    diagonal included).  C_stripe is int32[R, S]; rt0 counts tiles of the
+    `tile` edge.
+
+    Replaces kmerdb_tpu/ops/pallas_gram.py gram_u32_pk_rows with the int8
+    engine: 7-bit weight limbs.  CUDA tensors go to csrc/gram_pk_rows.cu;
+    CPU tensors to gram_u32_pk_rows_plain."""
+    _check_rows(Bp, w, C_stripe, rt0, n_limbs, kt, tile)
+    if _kernel_device(Bp, w, C_stripe) == "cpu":
+        return gram_u32_pk_rows_plain(Bp, w, C_stripe, rt0, n_limbs=n_limbs,
+                                      kt=kt, tile=tile)
+    _require(C_stripe.data_ptr() % 16 == 0, "C_stripe must be 16-byte aligned")
+    _cuda_call(_cuda.lib().kmerdb_gram_pk_rows, Bp.data_ptr(), w.data_ptr(),
+               C_stripe.data_ptr(), Bp.shape[0], Bp.shape[1],
+               C_stripe.shape[0], rt0, n_limbs, kt, tile,
+               device=C_stripe.device)
+    gram_u32_pk_rows.launches += 1
+    return C_stripe
+
+
+gram_u32_pk_rows.launches = 0
+
+
+def gram_u32_pk_rows_plain(Bp: torch.Tensor, w: torch.Tensor,
+                           C_stripe: torch.Tensor, rt0: int, *, n_limbs: int,
+                           kt: int = KT, tile: int = TILE) -> torch.Tensor:
+    """Plain PyTorch version of gram_u32_pk_rows, on any device."""
+    _check_rows(Bp, w, C_stripe, rt0, n_limbs, kt, tile)
+    acc = _gram_plain(Bp, w, n_limbs, kt, rt0 * tile, C_stripe.shape[0])
+    old = C_stripe.to(torch.int64) & 0xFFFFFFFF
+    C_stripe.copy_(_to_int32((old + acc) & 0xFFFFFFFF))
+    return C_stripe
+
+
+def _narrow(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int32 storage to `dtype`; torch.int16 keeps the low 16 bits (the
+    bits of a uint32 -> uint16 cast)."""
+    if dtype == torch.int32:
+        return x
+    low = x & 0xFFFF
+    return torch.where(low >= 1 << 15, low - (1 << 16), low).to(torch.int16)
 
 
 def _check_tril(C, dtype) -> None:
@@ -185,6 +264,10 @@ def _check_tril(C, dtype) -> None:
              and C.shape[0] == C.shape[1] and C.shape[0] % PULL_TILE == 0,
              f"C must be int32[S, S] with S a multiple of {PULL_TILE}")
     _require(C.is_contiguous(), "C must be contiguous")
+    _check_pull_dtype(dtype)
+
+
+def _check_pull_dtype(dtype) -> None:
     _require(dtype in (torch.int16, torch.int32),
              "dtype must be torch.int16 (uint16 bits) or torch.int32")
 
@@ -222,4 +305,146 @@ def tril_tiles_plain(C: torch.Tensor, dtype: torch.dtype = torch.int32
     i_tab, j_tab = (torch.from_numpy(t).to(C.device, torch.int64)
                     for t in tri_tile_tables(nt))
     blocks = C.reshape(nt, T, nt, T).transpose(1, 2)
-    return blocks[i_tab, j_tab].to(dtype)
+    return _narrow(blocks[i_tab, j_tab], dtype)
+
+
+def _check_stripe(C) -> None:
+    _require(C.dtype == torch.int32 and C.dim() == 2
+             and C.shape[0] % PULL_TILE == 0 and C.shape[1] % PULL_TILE == 0,
+             f"C must be int32[R, S] with R and S multiples of {PULL_TILE}")
+    _require(C.is_contiguous(), "C must be contiguous")
+
+
+def cast_rows(C: torch.Tensor) -> torch.Tensor:
+    """The low 16 bits of every cell of C int32[R, S], as int16[R, S] (the
+    bits of a uint32 -> uint16 cast): the streamed stripe pull's
+    narrowing.
+
+    Replaces kmerdb_tpu/ops/pallas_gram.py cast_rows at dtype uint16.
+    CUDA tensors go to csrc/cast_rows.cu; CPU tensors to cast_rows_plain."""
+    _check_stripe(C)
+    if _kernel_device(C) == "cpu":
+        return cast_rows_plain(C)
+    _require(C.data_ptr() % 16 == 0, "C must be 16-byte aligned")
+    out = torch.empty(C.shape, dtype=torch.int16, device=C.device)
+    _cuda_call(_cuda.lib().kmerdb_cast_rows, C.data_ptr(), out.data_ptr(),
+               C.numel(), device=C.device)
+    cast_rows.launches += 1
+    return out
+
+
+cast_rows.launches = 0
+
+
+def cast_rows_plain(C: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of cast_rows, on any device."""
+    _check_stripe(C)
+    return _narrow(C, torch.int16)
+
+
+def bias_bounds(lo: int, hi: int) -> np.ndarray:
+    """Inclusive uint32 bounds encoded for filter_colsum as int32[2]
+    (u32 ^ 0x80000000), as kmerdb_tpu/ops/pallas_gram.bias_bounds does."""
+    return (np.array([lo, hi], dtype=np.uint32)
+            ^ np.uint32(0x80000000)).astype(np.int32)
+
+
+def _unbias(bounds) -> tuple:
+    """(lo, hi) as Python ints from bias_bounds' encoding."""
+    b = np.asarray(bounds)
+    _require(b.shape == (2,) and b.dtype == np.int32,
+             "bounds must be int32[2] from bias_bounds")
+    lo, hi = (b.view(np.uint32) ^ np.uint32(0x80000000)).tolist()
+    return lo, hi
+
+
+def filter_colsum(C: torch.Tensor, bounds: np.ndarray) -> torch.Tensor:
+    """int32[R/128, S]: for each 128-row tile of C int32[R, S] and each
+    column, how many cells lie in [lo, hi], compared as uint32; `bounds`
+    is bias_bounds(lo, hi).
+
+    Replaces kmerdb_tpu/ops/pallas_gram.py filter_colsum (whose uint32
+    output holds the same counts, at most 128).  CUDA tensors go to
+    csrc/filter_colsum.cu, with the bounds decoded; CPU tensors to
+    filter_colsum_plain."""
+    _check_stripe(C)
+    lo, hi = _unbias(bounds)
+    if _kernel_device(C) == "cpu":
+        return filter_colsum_plain(C, bounds)
+    out = torch.empty((C.shape[0] // PULL_TILE, C.shape[1]), dtype=torch.int32,
+                      device=C.device)
+    _cuda_call(_cuda.lib().kmerdb_filter_colsum, C.data_ptr(), out.data_ptr(),
+               C.shape[0], C.shape[1], lo, hi, device=C.device)
+    filter_colsum.launches += 1
+    return out
+
+
+filter_colsum.launches = 0
+
+
+def filter_colsum_plain(C: torch.Tensor, bounds: np.ndarray) -> torch.Tensor:
+    """Plain PyTorch version of filter_colsum, on any device."""
+    _check_stripe(C)
+    lo, hi = _unbias(bounds)
+    u = C.to(torch.int64) & 0xFFFFFFFF
+    keep = ((u >= lo) & (u <= hi)).to(torch.int32)
+    return keep.reshape(-1, PULL_TILE, C.shape[1]).sum(1, dtype=torch.int32)
+
+
+def tile_tables(i_tab, j_tab, device) -> tuple:
+    """Tile coordinate tables (integer sequences, e.g. the JAX package's
+    numpy tables) as gather_tiles' int32 tensors on `device`."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(t, np.int32))
+                 .to(torch.device(device)) for t in (i_tab, j_tab))
+
+
+def _check_gather(C, i_tab, j_tab, dtype) -> None:
+    _check_stripe(C)
+    _check_pull_dtype(dtype)
+    _require(all(t.dtype == torch.int32 and t.dim() == 1 and t.is_contiguous()
+                 for t in (i_tab, j_tab)) and i_tab.numel() == j_tab.numel(),
+             "i_tab and j_tab must be int32[n]")
+    if i_tab.numel():
+        # a kernel reading outside C would return other memory's bits;
+        # one transfer brings all four extremes to the host
+        i_lo, i_hi, j_lo, j_hi = torch.stack(
+            [*torch.aminmax(i_tab), *torch.aminmax(j_tab)]).tolist()
+        _require(i_lo >= 0 and j_lo >= 0
+                 and i_hi < C.shape[0] // PULL_TILE
+                 and j_hi < C.shape[1] // PULL_TILE,
+                 "a listed tile lies outside C")
+
+
+def gather_tiles(C: torch.Tensor, i_tab: torch.Tensor, j_tab: torch.Tensor,
+                 dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """The 128 x 128 tiles (i_tab[t], j_tab[t]) of C int32[R, S] as
+    [n, 128, 128], in the tables' order (repeats allowed); dtype
+    torch.int16 keeps the low 16 bits.
+
+    Replaces kmerdb_tpu/ops/pallas_gram.py gather_tiles; n is exact (the
+    JAX package pads it to a compile bucket).  CUDA tensors go to
+    csrc/tril_tiles.cu; CPU tensors to gather_tiles_plain."""
+    _check_gather(C, i_tab, j_tab, dtype)
+    if _kernel_device(C, i_tab, j_tab) == "cpu":
+        return gather_tiles_plain(C, i_tab, j_tab, dtype)
+    _require(C.data_ptr() % 16 == 0, "C must be 16-byte aligned")
+    out = torch.empty((i_tab.numel(), PULL_TILE, PULL_TILE), dtype=dtype,
+                      device=C.device)
+    _cuda_call(_cuda.lib().kmerdb_gather_tiles, C.data_ptr(),
+               i_tab.data_ptr(), j_tab.data_ptr(), out.data_ptr(),
+               i_tab.numel(), C.shape[1], out.element_size(), device=C.device)
+    gather_tiles.launches += 1
+    return out
+
+
+gather_tiles.launches = 0
+
+
+def gather_tiles_plain(C: torch.Tensor, i_tab: torch.Tensor,
+                       j_tab: torch.Tensor,
+                       dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Plain PyTorch version of gather_tiles, on any device."""
+    _check_gather(C, i_tab, j_tab, dtype)
+    T = PULL_TILE
+    blocks = C.reshape(C.shape[0] // T, T, C.shape[1] // T, T).transpose(1, 2)
+    return _narrow(blocks[i_tab.long(), j_tab.long()], dtype)

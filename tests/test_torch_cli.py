@@ -85,7 +85,6 @@ def test_distance_matches_jax(corpus, monkeypatch):
     (["all2all", "-from-fasta", "LIST", "OUT"], {}),
     (["all2all", "-mesh", "2", "DB", "OUT"], {}),
     (["all2all", "DB", "OUT"], {"KMERDB_MESH": "auto"}),
-    (["all2all", "DB", "OUT"], {"KMERDB_A2A_STREAM": "1"}),
     (["build", "LIST", "DB"], {"KMERDB_BUILD_DEVICE": "1"}),
     (["build", "LIST", "DB"], {"KMERDB_DEVICE_INGEST": "1"}),
     (["all2all", "DB", "OUT"], {"KMERDB_A2A_ENGINE": "bf16"}),

@@ -65,22 +65,127 @@ def test_misaligned_operand_is_refused(card):
         gram.tril_tiles(C.view(256, 256))
 
 
-@pytest.mark.skipif(not native.available, reason="no native host runtime")
-def test_all2all_device_matches_host_tier(card):
+def _random_db(S=300, P=3000, max_w=1 << 20):
     rng = np.random.default_rng(2)
-    S, P = 300, 3000
     lens = rng.integers(1, 40, size=P)
     offs = np.zeros(P + 1, dtype=np.int64)
     np.cumsum(lens, out=offs[1:])
     sids = np.concatenate([np.sort(rng.choice(S, size=k, replace=False))
                            for k in lens]).astype(np.uint32)
-    w = rng.integers(1, 1 << 20, size=P).astype(np.uint32)
+    w = rng.integers(1, max_w, size=P).astype(np.uint32)
     host = native.a2a_dense(offs, sids, w, S)
     db = KmerPatternDb(kmer_length=18,
                        sample_names=[f"s{i}" for i in range(S)],
                        sample_kmer_counts=np.diag(host).copy(),
                        pattern_offsets=offs, pattern_sample_ids=sids,
                        pattern_num_kmers=w)
+    return db, host
+
+
+@pytest.mark.skipif(not native.available, reason="no native host runtime")
+def test_all2all_device_matches_host_tier(card):
+    db, host = _random_db()
     np.testing.assert_array_equal(device_a2a.all2all_device(db), host)
     assert device_a2a.last_stats["device"] == "cuda"
     assert device_a2a.last_stats["gram_s"] > 0
+
+
+@pytest.mark.parametrize("S,rows,n_limbs,kt,tile,nrt,rt0", [
+    (384, 1024, 1, 256, 128, 1, 2), (640, 1024, 3, 512, 128, 2, 3),
+    (768, 2048, 5, 1024, 256, 1, 1)])
+def test_gram_rows_kernel_matches_plain(card, S, rows, n_limbs, kt, tile,
+                                        nrt, rt0):
+    rng = np.random.default_rng(S + n_limbs)
+    Bp = rng.integers(0, 256, size=(rows // 8, S), dtype=np.uint8)
+    w = _u32(rng, rows) >> np.uint32(max(0, 32 - 7 * n_limbs))
+    Bt, wt, Ct = gram.from_jax_layout(Bp, gram.pk_weight_order(w, kt),
+                                      _u32(rng, (nrt * tile, S)), card)
+    n = gram.gram_u32_pk_rows.launches
+    plain = gram.gram_u32_pk_rows_plain(Bt, wt, Ct.clone(), rt0,
+                                        n_limbs=n_limbs, kt=kt, tile=tile)
+    gram.gram_u32_pk_rows(Bt, wt, Ct, rt0, n_limbs=n_limbs, kt=kt, tile=tile)
+    torch.cuda.synchronize()
+    assert gram.gram_u32_pk_rows.launches == n + 1
+    assert torch.equal(Ct, plain)
+
+
+def _edge_stripe(rng, shape, card):
+    edges = np.array([0, 1, 32767, 32768, 65535, 65536, 2**31 - 1, 2**31,
+                      2**32 - 1], dtype=np.uint32)
+    C = _u32(rng, shape)
+    mask = rng.random(shape) < 0.3
+    C[mask] = rng.choice(edges, size=int(mask.sum()))
+    return torch.from_numpy(C.view(np.int32)).to(card)
+
+
+def test_cast_rows_kernel_matches_plain(card):
+    C = _edge_stripe(np.random.default_rng(12), (384, 640), card)
+    n = gram.cast_rows.launches
+    got = gram.cast_rows(C)
+    torch.cuda.synchronize()
+    assert gram.cast_rows.launches == n + 1
+    assert torch.equal(got, gram.cast_rows_plain(C))
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 2**32 - 1), (30, 40000),
+                                   (2**31 + 3, 2**32 - 2), (2**31, 2**31)])
+def test_filter_colsum_kernel_matches_plain(card, lo, hi):
+    C = _edge_stripe(np.random.default_rng(13), (256, 384), card)
+    b = gram.bias_bounds(lo, hi)
+    n = gram.filter_colsum.launches
+    got = gram.filter_colsum(C, b)
+    torch.cuda.synchronize()
+    assert gram.filter_colsum.launches == n + 1
+    assert torch.equal(got, gram.filter_colsum_plain(C, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_gather_tiles_kernel_matches_plain(card, dtype):
+    C = _edge_stripe(np.random.default_rng(14), (384, 640), card)
+    it, jt = gram.tile_tables([2, 0, 2, 1, 0, 2, 1], [4, 0, 4, 1, 3, 0, 2],
+                              card)
+    n = gram.gather_tiles.launches
+    got = gram.gather_tiles(C, it, jt, dtype)
+    torch.cuda.synchronize()
+    assert gram.gather_tiles.launches == n + 1
+    assert torch.equal(got, gram.gather_tiles_plain(C, it, jt, dtype))
+
+
+def test_stripe_operands_are_refused(card):
+    C = torch.zeros(256 * 256 + 1, dtype=torch.int32, device=card)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        gram.cast_rows(C.view(256, 256))
+    good = torch.zeros((256, 256), dtype=torch.int32, device=card)
+    it, jt = gram.tile_tables([0, 2], [0, 0], card)
+    with pytest.raises(ValueError, match="outside"):
+        gram.gather_tiles(good, it, jt)
+    with pytest.raises(ValueError, match="int32"):
+        gram.gather_tiles(good, it.long(), jt.long())
+    with pytest.raises(ValueError, match="int32"):
+        gram.cast_rows(good.to(torch.int64))
+
+
+@pytest.mark.skipif(not native.available, reason="no native host runtime")
+@pytest.mark.parametrize("resident_mb", ["4096", "0"])
+@pytest.mark.parametrize("max_w", [1 << 20, 40])
+def test_all2all_device_rows_matches_host_tier(card, monkeypatch,
+                                               resident_mb, max_w):
+    """Resident and re-packed groups; the uint16 (max_w 40: every count
+    below 2^16) and uint32 pulls; dense and survivor-tile pulls."""
+    monkeypatch.setenv("KMERDB_A2A_RESIDENT_MB", resident_mb)
+    db, host = _random_db(S=300, max_w=max_w)
+    lo = int(host[np.tril_indices(300, -1)].max())
+    for bounds in (None, (1, 2**32 - 1), (lo, 2**32 - 1)):
+        want = host if bounds is None else \
+            np.where((host >= bounds[0]) & (host <= bounds[1]), host, 0)
+        rows = []
+        device_a2a.all2all_device_rows(
+            db, lambda i, r: rows.append(r.copy()), stripe_rows=256,
+            cell_bounds=bounds)
+        np.testing.assert_array_equal(np.stack(rows), want)
+        st = device_a2a.last_stats
+        assert st["device"] == "cuda" and st["gram_s"] > 0
+        assert st["resident_groups"] == (resident_mb != "0")
+        if bounds is not None and bounds[0] == lo:
+            sp = st["sparse_pull"]
+            assert 0 < sp["tiles_pulled"] < sp["tiles_total"]
