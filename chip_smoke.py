@@ -34,7 +34,27 @@ one per case), each with its seconds:
 10. the oracle: (a) both streamed CSVs equal the matrix route's byte for
     byte at 20,480 samples; (b) at 4,096 samples, all2all_device_rows
     with several stripes and an overlapping last one hands out phase 6's
-    host C++ tier rows exactly, unfiltered and filtered.
+    host C++ tier rows exactly, unfiltered and filtered;
+11. the query and cross kernels against their plain versions, exactly,
+    with the times of both: ``matmul_u32_acc`` at new2all's shapes on the
+    4,096-sample database (Q_pad 512, S_pad 4096, the P_pad of the first
+    m2a_prepare chunk; uint8 H over 0..255, and uint32 H of 4 limbs at
+    2^31 and above, C seeded non-zero), ``cross_u32_pk`` at the parts
+    grid's shape (weight 1, 1,024 x 1,024) and at a db2db shape (1,024 x
+    640, distinct weights past 2^14, a K block other than the default);
+12. ``new2all`` through the CLI on the device tier (KMERDB_N2A_DEVICE=1):
+    the database of phase 3 against the first 1,100 genomes of its own
+    list (flushes of 512, 512 and 76 queries), dense and ``-sparse -min
+    num-kmers:27000``, launch counters reset before each call and read
+    after it, with the device tier's phase times;
+13. the oracle: both new2all CSVs equal the host tier's byte for byte, and
+    ``one2all`` of one genome gives its new2all row;
+14. ``all2all-parts`` over the scale corpus in 4 parts of 1,024 samples,
+    each part built through the CLI: (a) the device grid, (b) the
+    streamed device grid, (c) per cell on the device tiers, each with its
+    launches;
+15. the oracle: the CSVs of (a), (b) and (c) equal the host tiers' byte
+    for byte.
 
 The next-to-last line is a JSON object of the kernels, the last
 ``{"ok": true, "device": {...}}``.  A failure exits non-zero without them.
@@ -62,6 +82,10 @@ N_LARGE = 20_480
 SPARSE_MIN = 27_000
 #: phase 10b: 11 tiles a stripe at S_pad 4096, the last stripe overlapping
 STRIPE_CHECK = 11 * 128
+#: phase 12: new2all's queries, the reference CI shape (bench.py:98-99)
+N_QUERIES = 1100
+#: phase 14: all2all-parts over the scale corpus in parts of this size
+PART_SIZE = 1024
 
 
 class PhaseError(RuntimeError):
@@ -276,23 +300,266 @@ def check_stripe_kernels(torch, gram, device_a2a, db, rng) -> dict:
     return out
 
 
+def check_query_kernels(torch, gram, intersect, db, queries, rng) -> list:
+    """Phase 11: matmul_u32_acc == plain at new2all's shapes: Q_pad and
+    S_pad of the first flush and the first m2a_prepare chunk's B, with H
+    over every uint8 byte and uint32 H of 4 limbs at 2^31 and above."""
+    dev = torch.device("cuda")
+    H_all, B_all, route_limbs = intersect.m2a_prepare(db, queries)
+    n_chunks, Q_pad, P_pad = H_all.shape
+    S_pad = B_all.shape[2]
+    B = torch.from_numpy(B_all[0]).to(dev)
+    del H_all, B_all
+    C0 = torch.from_numpy(rng.integers(0, 1 << 32, size=(Q_pad, S_pad),
+                                       dtype=np.uint64).astype(np.uint32)
+                          .view(np.int32)).to(dev)
+    out = []
+    for h_type, n_limbs in (("uint8", 1), ("uint32", 4)):
+        if n_limbs == 1:
+            H = rng.integers(0, 256, size=(Q_pad, P_pad), dtype=np.uint8)
+            H[:, :256] = np.arange(256, dtype=np.uint8)    # every byte
+        else:
+            H = rng.integers(1 << 31, 1 << 32, size=(Q_pad, P_pad),
+                             dtype=np.uint64).astype(np.uint32).view(np.int32)
+        H = torch.from_numpy(H).to(dev)
+        Ck = gram.matmul_u32_acc(H, B, C0.clone(), n_limbs=n_limbs)
+        Cp = gram.matmul_u32_acc_plain(H, B, C0.clone(), n_limbs=n_limbs)
+        torch.cuda.synchronize()
+        err = _err(torch, Ck, Cp)
+        _check(torch.equal(Ck, Cp) and not torch.equal(Ck, C0),
+               f"matmul_u32_acc differs from its plain version "
+               f"({h_type} H, max_abs_err={err})")
+        Ct = C0.clone()
+        ms = _cuda_ms(torch, lambda: gram.matmul_u32_acc(
+            H, B, Ct, n_limbs=n_limbs), 5)
+        plain_ms = _cuda_ms(torch, lambda: gram.matmul_u32_acc_plain(
+            H, B, Ct, n_limbs=n_limbs), 2)
+        ops = 2.0 * Q_pad * P_pad * S_pad * n_limbs
+        out.append(dict(H=h_type, n_limbs=n_limbs, Q_pad=Q_pad, P_pad=P_pad,
+                        S_pad=S_pad, chunks=n_chunks, route_limbs=route_limbs,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        tops=ops / ms / 1e9))
+        del H, Ck, Cp, Ct
+    return out
+
+
+def check_cross_kernels(torch, gram, device_a2a, db, rng) -> list:
+    """Phase 11: cross_u32_pk == plain on the database's first light group:
+    the parts grid's shape (samples 0..1023 x 1024..2047, weight 1, the
+    port's K block) and a db2db shape (1,024 x 640, distinct weights up to
+    2^15, three limbs, another K block)."""
+    dev = torch.device("cuda")
+    kt_check = 4 * device_a2a.KT
+    Bp_np, _, rows, _, _, _ = _first_group(device_a2a, db, kt_check)
+
+    def cols(a, b):
+        return torch.from_numpy(np.ascontiguousarray(Bp_np[:, a:b])).to(dev)
+
+    part = min(PART_SIZE, Bp_np.shape[1] // 4)      # 1,024 at S_pad 4096
+    d2d = max(128, part * 5 // 8 // 128 * 128)      # 640
+    Up = cols(0, part)
+    w_d2d = rng.integers(1, 1 << 15, size=rows, dtype=np.uint64)
+    _check(int(w_d2d.max()) >= 1 << 14, "db2db weights below 2^14")
+    out = []
+    for shape, Vp, w_np, n_limbs, kt in (
+            ("grid", cols(part, 2 * part), np.ones(rows, np.uint32), 1,
+             device_a2a.KT),
+            ("d2d", cols(2 * part, 2 * part + d2d), w_d2d.astype(np.uint32),
+             3, kt_check)):
+        w = torch.from_numpy(gram.pk_weight_order(w_np, kt).view(np.int32)) \
+            .to(dev)
+        S1, S2 = Up.shape[1], Vp.shape[1]
+        C0 = torch.from_numpy(rng.integers(0, 1 << 32, size=(S1, S2),
+                                           dtype=np.uint64).astype(np.uint32)
+                              .view(np.int32)).to(dev)
+        kw = dict(n_limbs=n_limbs, kt=kt)
+        Ck = gram.cross_u32_pk(Up, Vp, w, C0.clone(), **kw)
+        Cp = gram.cross_u32_pk_plain(Up, Vp, w, C0.clone(), **kw)
+        torch.cuda.synchronize()
+        err = _err(torch, Ck, Cp)
+        _check(torch.equal(Ck, Cp) and not torch.equal(Ck, C0),
+               f"cross_u32_pk differs from its plain version ({shape}, "
+               f"max_abs_err={err})")
+        Ct = C0.clone()
+        ms = _cuda_ms(torch, lambda: gram.cross_u32_pk(Up, Vp, w, Ct, **kw),
+                      5)
+        plain_ms = _cuda_ms(torch, lambda: gram.cross_u32_pk_plain(
+            Up, Vp, w, Ct, **kw), 1)
+        ops = 2.0 * rows * S1 * S2 * n_limbs
+        out.append(dict(shape=shape, S1=S1, S2=S2, rows=rows, kt=kt,
+                        n_limbs=n_limbs, max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, tops=ops / ms / 1e9))
+    return out
+
+
+def new2all_phases(torch, cli, gram, intersect, workdir, db_path, paths,
+                   say) -> dict:
+    """Phases 12 and 13: new2all through the CLI on the device and host
+    tiers, dense and sparse, and one2all of one genome."""
+    query_list = os.path.join(workdir, "queries.list")
+    with open(query_list, "w") as f:
+        f.write("\n".join(paths[:N_QUERIES]) + "\n")
+    flushes = -(-N_QUERIES // 512)
+    csvs, runs = {}, {}
+    for tier in ("1", "0"):
+        os.environ["KMERDB_N2A_DEVICE"] = tier
+        for form, opts in (("dense", []),
+                           ("sparse", ["-sparse", "-min",
+                                       f"num-kmers:{SPARSE_MIN}"])):
+            csvs[tier, form] = os.path.join(workdir, f"n2a{tier}-{form}.csv")
+            intersect.n2a_stats.clear()
+            _reset_launches(gram)
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            rc = cli(["new2all", *opts, db_path, query_list,
+                      csvs[tier, form]])
+            wall = time.perf_counter() - t
+            n = _launches(gram)
+            st = dict(intersect.n2a_stats)
+            _check(rc == 0, f"new2all {form} (KMERDB_N2A_DEVICE={tier}) "
+                            f"exited {rc}")
+            runs[tier, form] = dict(wall=wall, launches=n, stats=st)
+            if tier == "0":
+                _check(not st and not any(n.values()),
+                       f"the host tier of new2all ran the device: {n}")
+                continue
+            _check(n["matmul_u32_acc"] > 0 and st.get("calls") == flushes,
+                   f"new2all {form}: matmul_u32_acc not launched on every "
+                   f"flush: {n}, {st}")
+            busy = st.get("matmul_s", 0.0)
+            say(f"[12 new2all {form}] {wall:.3f} s CLI call ({N_QUERIES} "
+                f"queries x {N_SAMPLES} samples; kernel busy {busy:.4f} s = "
+                f"{100 * busy / wall:.1f}%), launches "
+                f"{ {k: v for k, v in n.items() if v} }, peak device memory "
+                f"{torch.cuda.max_memory_allocated() >> 20} MiB, CSV "
+                f"{os.path.getsize(csvs[tier, form])} bytes; device tier "
+                + _fmt(st))
+    os.environ.pop("KMERDB_N2A_DEVICE")
+
+    t = time.perf_counter()
+    for form in ("dense", "sparse"):
+        _check(filecmp.cmp(csvs["1", form], csvs["0", form], shallow=False),
+               f"new2all {form}: the device CSV differs from the host tier's")
+        say(f"[13 oracle] new2all {form}: device CSV == host tier CSV "
+            f"({os.path.getsize(csvs['1', form])} bytes); host tier "
+            f"{runs['0', form]['wall']:.3f} s vs device tier "
+            f"{runs['1', form]['wall']:.3f} s")
+    pick = 7
+    o2a = os.path.join(workdir, "o2a.csv")
+    _check(cli(["one2all", db_path, paths[pick] + ".fasta", o2a]) == 0,
+           "one2all failed")
+    with open(o2a) as f:
+        want = f.read().splitlines()[-1].split(",")[1:]
+    with open(csvs["1", "dense"]) as f:
+        got = f.read().splitlines()[2 + pick].split(",")[1:]
+    _check(got == want, f"one2all of genome {pick} differs from its "
+                        f"new2all row")
+    for path in (*csvs.values(), o2a, query_list):
+        os.remove(path)
+    say(f"[13 oracle] one2all of genome {pick} == its new2all row "
+        f"({len([v for v in want if v])} fields); "
+        f"{time.perf_counter() - t:.2f} s")
+    return runs
+
+
+_PARTS_KNOBS = ("KMERDB_GRID_DEVICE", "KMERDB_GRID_STREAM",
+                "KMERDB_D2D_DEVICE", "KMERDB_A2A_DEVICE")
+_PARTS_TIERS = {
+    "a grid": {"KMERDB_GRID_DEVICE": "1"},
+    "b streamed grid": {"KMERDB_GRID_DEVICE": "1", "KMERDB_GRID_STREAM": "1"},
+    "c per cell": {"KMERDB_GRID_DEVICE": "0", "KMERDB_D2D_DEVICE": "1",
+                   "KMERDB_A2A_DEVICE": "1"},
+    "host": {"KMERDB_GRID_DEVICE": "0", "KMERDB_D2D_DEVICE": "0",
+             "KMERDB_A2A_DEVICE": "0"},
+}
+
+
+def parts_phases(torch, cli, gram, fused, workdir, paths, say) -> dict:
+    """Phases 14 and 15: all2all-parts over the corpus in parts, on the
+    device grid, the streamed grid and per cell, against the host tiers."""
+    t = time.perf_counter()
+    part_dbs = []
+    for pi in range(len(paths) // PART_SIZE):
+        lst = os.path.join(workdir, f"part{pi}.list")
+        with open(lst, "w") as f:
+            f.write("\n".join(paths[pi * PART_SIZE:(pi + 1) * PART_SIZE])
+                    + "\n")
+        part_dbs.append(os.path.join(workdir, f"part{pi}.db"))
+        _check(cli(["build", "-k", "18", lst, part_dbs[-1]]) == 0,
+               f"build of part {pi} failed")
+    parts_list = os.path.join(workdir, "parts.list")
+    with open(parts_list, "w") as f:
+        f.write("\n".join(part_dbs) + "\n")
+    say(f"[14 parts build] {time.perf_counter() - t:.2f} s; "
+        f"{len(part_dbs)} parts of {PART_SIZE} samples")
+
+    csvs, runs = {}, {}
+    for name, env in _PARTS_TIERS.items():
+        for k in _PARTS_KNOBS:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        csvs[name] = os.path.join(workdir, f"parts-{name[0]}.csv")
+        fused.last_stats.clear()
+        _reset_launches(gram)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rc = cli(["all2all-parts", parts_list, csvs[name]])
+        wall = time.perf_counter() - t
+        n = _launches(gram)
+        _check(rc == 0, f"all2all-parts ({name}) exited {rc}")
+        runs[name] = dict(wall=wall, launches=n)
+        want = {"cross_u32_pk"} | (
+            {"cast_rows"} if "grid" in name else
+            {"gram_pk_tri", "tril_tiles"} if name == "c per cell" else set())
+        if name == "host":
+            want = set()
+        _check({k for k, v in n.items() if v} == want,
+               f"all2all-parts ({name}) launched {n}, expected {want}")
+        shown = {k: n[k] for k in ("cross_u32_pk", "cast_rows", "gram_pk_tri",
+                                   "tril_tiles")}
+        say(f"[14 all2all-parts {name}] {wall:.3f} s CLI call, launches "
+            f"{shown}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() >> 20} MiB, CSV "
+            f"{os.path.getsize(csvs[name])} bytes"
+            + ("; grid " + _fmt(fused.last_stats) if fused.last_stats
+               else ""))
+    for k in _PARTS_KNOBS:
+        os.environ.pop(k, None)
+
+    for name in ("a grid", "b streamed grid", "c per cell"):
+        _check(filecmp.cmp(csvs[name], csvs["host"], shallow=False),
+               f"all2all-parts ({name}) CSV differs from the host tiers'")
+        say(f"[15 oracle] all2all-parts ({name}) CSV == host tiers' CSV; "
+            f"{runs[name]['wall']:.3f} s vs host {runs['host']['wall']:.3f} s")
+    for path in (*csvs.values(), *part_dbs):
+        os.remove(path)
+    return runs
+
+
+def _kernel_fns(gram) -> dict:
+    return {"gram_pk_tri": gram.gram_u32_pk_tri,
+            "tril_tiles": gram.tril_tiles,
+            "gram_pk_rows": gram.gram_u32_pk_rows,
+            "cast_rows": gram.cast_rows,
+            "filter_colsum": gram.filter_colsum,
+            "gather_tiles": gram.gather_tiles,
+            "matmul_u32_acc": gram.matmul_u32_acc,
+            "cross_u32_pk": gram.cross_u32_pk}
+
+
 def _launches(gram) -> dict:
-    return {"gram_pk_tri": gram.gram_u32_pk_tri.launches,
-            "tril_tiles": gram.tril_tiles.launches,
-            "gram_pk_rows": gram.gram_u32_pk_rows.launches,
-            "cast_rows": gram.cast_rows.launches,
-            "filter_colsum": gram.filter_colsum.launches,
-            "gather_tiles": gram.gather_tiles.launches}
+    return {name: fn.launches for name, fn in _kernel_fns(gram).items()}
 
 
 def _reset_launches(gram) -> None:
-    for fn in (gram.gram_u32_pk_tri, gram.tril_tiles, gram.gram_u32_pk_rows,
-               gram.cast_rows, gram.filter_colsum, gram.gather_tiles):
+    for fn in _kernel_fns(gram).values():
         fn.launches = 0
 
 
-def _corpus(cli, bench_corpus, dbfile, workdir, name, n_samples):
-    """(database path, loaded database, corpus s, build s)."""
+def _corpus(cli, bench_corpus, dbfile, workdir, name, n_samples,
+            keep=False):
+    """(database path, loaded database, corpus s, build s, the corpus
+    list when `keep`, else None: the genomes are deleted)."""
     t = time.perf_counter()
     lst = bench_corpus.generate_scale(
         os.path.join(workdir, f"corpus{n_samples}"), n_samples=n_samples,
@@ -302,9 +569,10 @@ def _corpus(cli, bench_corpus, dbfile, workdir, name, n_samples):
     t = time.perf_counter()
     _check(cli(["build", "-k", "18", lst, db_path]) == 0, "build failed")
     t_build = time.perf_counter() - t
-    shutil.rmtree(os.path.dirname(lst), ignore_errors=True)
+    if not keep:
+        shutil.rmtree(os.path.dirname(lst), ignore_errors=True)
     return db_path, dbfile.load_db(db_path, dbfile.PATTERNS), t_corpus, \
-        t_build
+        t_build, lst if keep else None
 
 
 def _set_route(stream=None, device=None) -> None:
@@ -346,8 +614,8 @@ def run(workdir: str) -> list:
             if "registers" in ln))
 
     t = time.perf_counter()
-    db_path, db, t_corpus, t_build = _corpus(cli, bench_corpus, dbfile,
-                                             workdir, "scale.db", N_SAMPLES)
+    db_path, db, t_corpus, t_build, scale_list = _corpus(
+        cli, bench_corpus, dbfile, workdir, "scale.db", N_SAMPLES, keep=True)
     say(f"[3 corpus+build] {time.perf_counter() - t:.2f} s; {db.n_samples} "
         f"samples x {GENOME_LEN} bp, {db.n_patterns} patterns; corpus "
         f"{t_corpus:.2f} s, build {t_build:.2f} s")
@@ -428,7 +696,7 @@ def run(workdir: str) -> list:
         f"byte-equal ({csv_bytes} bytes)")
 
     t = time.perf_counter()
-    big_path, big, t_corpus, t_build = _corpus(
+    big_path, big, t_corpus, t_build, _ = _corpus(
         cli, bench_corpus, dbfile, workdir, "large.db", N_LARGE)
     kt, tile, S_pad = device_a2a._geometry(big.n_samples)
     light, heavy, heavy_limbs = device_a2a._limb_split(big.pattern_num_kmers)
@@ -546,6 +814,32 @@ def run(workdir: str) -> list:
             f"bounds {bounds}"
             + (f", sparse_pull {st['sparse_pull']}" if bounds else ""))
     say(f"[10b oracle] {time.perf_counter() - t:.2f} s")
+    del C_host
+
+    from kmerdb_tpu_torch.host import loader, params
+    from kmerdb_tpu_torch.ops import fused
+    with open(scale_list) as f:
+        paths = [ln for ln in f.read().split() if ln]
+    t = time.perf_counter()
+    dbq = dbfile.load_db(db_path, dbfile.EVERYTHING)
+    first = os.path.join(workdir, "first-flush.list")
+    with open(first, "w") as f:
+        f.write("\n".join(paths[:512]) + "\n")
+    queries = [s.kmers for s in loader.iter_samples(
+        first, params.GENOME, dbq.kmer_length, dbq.fraction,
+        dbq.start_fraction, dbq.alphabet_name, False)]
+    qres = check_query_kernels(torch, gram, intersect, dbq, queries, rng)
+    del dbq, queries
+    cres = check_cross_kernels(torch, gram, device_a2a, db, rng)
+    torch.cuda.empty_cache()
+    say(f"[11 kernels] {time.perf_counter() - t:.2f} s")
+    for name, cases in (("matmul_u32_acc", qres), ("cross_u32_pk", cres)):
+        for c in cases:
+            say(f"[11 kernel] {name} == plain: {_fmt(c)}")
+
+    n2a = new2all_phases(torch, cli, gram, intersect, workdir, db_path,
+                         paths, say)
+    parts = parts_phases(torch, cli, gram, fused, workdir, paths, say)
 
     def entry(name, source, replaces, res, launches, timed=0):
         """res[timed] gives the times: the case nearest the route's own."""
@@ -571,6 +865,10 @@ def run(workdir: str) -> list:
               sres["filter_colsum"], sparse),
         entry("gather_tiles", "tril_tiles.cu", 482, sres["gather_tiles"],
               sparse),
+        entry("matmul_u32_acc", "matmul_acc.cu", 686, qres,
+              n2a["1", "dense"]["launches"]),
+        entry("cross_u32_pk", "cross_pk.cu", 727, cres,
+              parts["a grid"]["launches"]),
     ]
 
 

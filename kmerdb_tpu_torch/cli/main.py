@@ -1,10 +1,11 @@
 """Entry point: `python -m kmerdb_tpu_torch <mode> [options] <args>`.
 
 The options and exit codes are kmerdb_tpu's (kmerdb_tpu/cli/main.py):
-exit 0 on success, 255 on any error.  ``build``, ``minhash`` and
-``distance`` run on the host and go to kmerdb_tpu's runners unchanged;
-``all2all`` over a database runs the port's tier choice
-(cli/consoles.py).  Modes and settings that would reach JAX code in
+exit 0 on success, 255 on any error.  ``build``, ``minhash``,
+``distance`` and ``one2all`` run on the host and go to kmerdb_tpu's
+runners unchanged; ``all2all`` over a database, ``new2all`` and
+``all2all-parts`` run the port's tier choices (cli/consoles.py,
+cli/parts.py).  Modes and settings that would reach JAX code in
 kmerdb_tpu, or that the port has no device tier for yet, are refused with
 an error rather than run on some other route.
 """
@@ -13,13 +14,16 @@ import os
 import sys
 
 from ..host import cli_main, consoles as host_consoles, log, native, params
-from . import consoles
+from . import consoles, parts
 
 _RUNNERS = {
     "build": host_consoles.run_build,
     "minhash": host_consoles.run_minhash,
     "distance": host_consoles.run_distance,
+    "one2all": host_consoles.run_one2all,
     "all2all": consoles.run_all2all,
+    "new2all": consoles.run_new2all,
+    "all2all-parts": parts.run_all2all_parts,
 }
 
 #: settings that route kmerdb_tpu's shared runners into its JAX code

@@ -1,15 +1,19 @@
-// One 128 x 128 output block of the packed Gram, shared by the triangle
-// (gram_pk_tri.cu) and row-stripe (gram_pk_rows.cu) kernels:
-//   out[r, c] += sum_p bit(p, row0 + r) * w[p] * bit(p, col0 + c)   mod 2^32.
+// One 128 x 128 output block of the packed two-operand Gram, shared by the
+// triangle (gram_pk_tri.cu), row-stripe (gram_pk_rows.cu) and rectangle
+// (cross_pk.cu) kernels:
+//   out[r, c] += sum_p bit_u(p, row0 + r) * w[p] * bit_v(p, col0 + c)   mod 2^32.
+// The two Grams of one database pass the same operand as u and v.
 //
 // The operands keep the JAX package's layout (kmerdb_tpu/ops/pallas_gram.py):
-//   bp  uint8[P/8, s_pad]  bit b of byte-row r is pattern 8r + b;
+//   up  uint8[P/8, ld_u]   row operand: bit b of byte-row r is pattern 8r + b;
+//   vp  uint8[P/8, ld_v]   column operand, the same patterns (for db2db, the
+//                          same pattern pairs) in the same bit order;
 //   w   uint32[P]          pattern weights in pk_weight_order for the block kt:
 //                          pattern 8r + b sits at blk*kt + b*(kt/8) + r%(kt/8),
 //                          blk = r / (kt/8), with kb = kt/8;
 //   out uint32             the block's first cell, rows `ld` apart.
-// row0 and col0 are global sample indices (columns of bp); P is a multiple of
-// kt, itself a multiple of 128, so a stage never crosses a kt block.
+// row0 is a column of up and col0 a column of vp; P is a multiple of kt,
+// itself a multiple of 128, so a stage never crosses a kt block.
 //
 // Stage.  16 packed rows (128 patterns) of the block's two column slabs are
 // unpacked into shared memory as dp4a words: the word for (bit plane b,
@@ -53,10 +57,11 @@ struct Smem {
 
 // Called by all kThreads threads of the block; `out` must be 16-byte aligned
 // and `ld` a multiple of 4.
-__device__ __forceinline__ void block(Smem& sm, const uint8_t* __restrict__ bp,
+__device__ __forceinline__ void block(Smem& sm, const uint8_t* __restrict__ up, int64_t ld_u,
+                                      const uint8_t* __restrict__ vp, int64_t ld_v,
                                       const uint32_t* __restrict__ w, int64_t n_rows8,
-                                      int64_t s_pad, int n_limbs, int kb, int64_t row0,
-                                      int64_t col0, uint32_t* __restrict__ out, int64_t ld) {
+                                      int n_limbs, int kb, int64_t row0, int64_t col0,
+                                      uint32_t* __restrict__ out, int64_t ld) {
   const int tid = threadIdx.x;
   // thread (ty, tx) owns rows {ty*4 + k, 64 + ty*4 + k} and columns
   // {tx*4 + k, 64 + tx*4 + k}, k = 0..3: 16-byte shared loads that a
@@ -75,12 +80,13 @@ __device__ __forceinline__ void block(Smem& sm, const uint8_t* __restrict__ bp,
     for (int it = tid; it < kQuads * kBlock; it += kThreads) {
       const int q = it / kBlock;
       const int col = it % kBlock;
-      const uint8_t* src = bp + (r0 + 4 * q) * s_pad;
+      const uint8_t* src_u = up + (r0 + 4 * q) * ld_u + row0 + col;
+      const uint8_t* src_v = vp + (r0 + 4 * q) * ld_v + col0 + col;
       uint32_t xr = 0u, xc = 0u;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        xr |= static_cast<uint32_t>(src[k * s_pad + row0 + col]) << (8 * k);
-        xc |= static_cast<uint32_t>(src[k * s_pad + col0 + col]) << (8 * k);
+        xr |= static_cast<uint32_t>(src_u[k * ld_u]) << (8 * k);
+        xc |= static_cast<uint32_t>(src_v[k * ld_v]) << (8 * k);
       }
       sm.x[q][col] = xr;
 #pragma unroll

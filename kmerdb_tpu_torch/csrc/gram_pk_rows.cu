@@ -29,8 +29,8 @@ gram_pk_rows_kernel(const uint8_t* __restrict__ bp, const uint32_t* __restrict__
   __shared__ gram_pk::Smem sm;
   const int64_t local0 = static_cast<int64_t>(blockIdx.y) * gram_pk::kBlock;
   const int64_t col0 = static_cast<int64_t>(blockIdx.x) * gram_pk::kBlock;
-  gram_pk::block(sm, bp, w, n_rows8, s_pad, n_limbs, kb, first_row + local0, col0,
-                 c + local0 * s_pad + col0, s_pad);
+  gram_pk::block(sm, bp, s_pad, bp, s_pad, w, n_rows8, n_limbs, kb, first_row + local0,
+                 col0, c + local0 * s_pad + col0, s_pad);
 }
 
 }  // namespace

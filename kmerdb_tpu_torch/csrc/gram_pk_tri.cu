@@ -30,7 +30,7 @@ gram_pk_tri_kernel(const uint8_t* __restrict__ bp, const uint32_t* __restrict__ 
   const int s = blockIdx.x % per_tile;
   const int64_t row0 = static_cast<int64_t>(ci * sub + s / sub) * gram_pk::kBlock;
   const int64_t col0 = static_cast<int64_t>(cj * sub + s % sub) * gram_pk::kBlock;
-  gram_pk::block(sm, bp, w, n_rows8, s_pad, n_limbs, kb, row0, col0,
+  gram_pk::block(sm, bp, s_pad, bp, s_pad, w, n_rows8, n_limbs, kb, row0, col0,
                  c + row0 * s_pad + col0, s_pad);
 }
 

@@ -22,8 +22,8 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = CSRC.parent / "build"
-SOURCES = ("gram_pk_tri.cu", "gram_pk_rows.cu", "tril_tiles.cu",
-           "cast_rows.cu", "filter_colsum.cu")
+SOURCES = ("gram_pk_tri.cu", "gram_pk_rows.cu", "cross_pk.cu", "tril_tiles.cu",
+           "cast_rows.cu", "filter_colsum.cu", "matmul_acc.cu")
 HEADERS = ("gram_pk.cuh", "tri.cuh")
 #: sm_90a: the Hopper target (plain sm_90 refuses wgmma, which later
 #: kernels will use); -Xptxas -v logs registers, shared memory and spills
@@ -110,6 +110,9 @@ def lib() -> ctypes.CDLL:
             ("kmerdb_gram_pk_tri", [vp, vp, vp, i64, i64, i32, i32, i32, vp]),
             ("kmerdb_gram_pk_rows",
              [vp, vp, vp, i64, i64, i64, i64, i32, i32, i32, vp]),
+            ("kmerdb_cross_pk",
+             [vp, vp, vp, vp, i64, i64, i64, i32, i32, vp]),
+            ("kmerdb_matmul_acc", [vp, i32, vp, vp, i64, i64, i64, i32, vp]),
             ("kmerdb_tril_tiles", [vp, vp, i64, i32, vp]),
             ("kmerdb_gather_tiles", [vp, vp, vp, vp, i64, i64, i32, vp]),
             ("kmerdb_cast_rows", [vp, vp, i64, vp]),

@@ -1,6 +1,8 @@
-"""The all2all kernels: the packed Gram over the triangle (matrix route) or
-a row stripe (streamed route), the triangle and survivor-tile pulls, and
-the stripe passes (uint16 narrowing, survivor counts of a count filter).
+"""The port's kernels: the packed Gram over the triangle (all2all's matrix
+route), a row stripe (its streamed route) or the rectangle of two operands
+(db2db and the all2all-parts grid), the accumulating query contraction of
+new2all, the triangle and survivor-tile pulls, and the stripe passes
+(uint16 narrowing, survivor counts of a count filter).
 
 Each kernel has a wrapper, which checks its operands, launches the CUDA
 kernel for CUDA tensors (or raises) and counts its launches, and a plain
@@ -13,10 +15,14 @@ packages identical operands (``from_jax_layout``):
 * ``Bp`` uint8[P/8, S]: bit b of byte-row r is pattern 8r + b;
 * ``w`` the P pattern weights permuted by ``pk_weight_order`` for the
   K block ``kt``, uint32 bits in int32 storage;
-* ``C`` uint32[S, S] counts, or a uint32[R, S] row stripe of them, in
-  int32 storage.  torch has no uint32 add or shift; int32 storage wraps
-  mod 2^32 with the same bits, and numpy reads them back with
-  ``.view(np.uint32)``.
+* ``Up``, ``Vp`` two packed operands uint8[P/8, S1] and uint8[P/8, S2]
+  over the same patterns (cross_u32_pk);
+* ``H`` uint8 or uint32[Q, P] hit counts and ``B`` int8 0/1 [P, S]
+  unpacked incidence (matmul_u32_acc);
+* ``C`` uint32[S, S] counts, a uint32[R, S] row stripe of them, or a
+  uint32[S1, S2] or [Q, S] rectangle, in int32 storage.  torch has no
+  uint32 add or shift; int32 storage wraps mod 2^32 with the same bits,
+  and numpy reads them back with ``.view(np.uint32)``.
 """
 
 import functools
@@ -169,31 +175,43 @@ def _to_int32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def _gram_plain(Bp: torch.Tensor, w: torch.Tensor, n_limbs: int, kt: int,
-                row0: int, n_rows: int) -> torch.Tensor:
-    """Rows [row0, row0 + n_rows) of B^T diag(w) B mod 2^32, as int64.
+def _mm_dtype(dev: torch.device) -> torch.dtype:
+    """The plain versions' matmul type: int64 on the CPU, float64 on the
+    card (CUDA has no int64 matmul).  Both are exact for the partials they
+    take: each is below 2^53."""
+    return torch.int64 if dev.type == "cpu" else torch.float64
 
-    Unpacks K blocks of patterns to 0/1 rows and multiplies them per limb:
-    in int64 on the CPU, in float64 on the card (CUDA has no int64 matmul).
-    Both are exact: a block's partial is at most 127 * 8192 < 2^53."""
-    dev = Bp.device
-    S = Bp.shape[1]
-    mm_dtype = torch.int64 if dev.type == "cpu" else torch.float64
+
+def _unpack_bits(blk: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """uint8[r, S] packed rows as [8r, S] 0/1 rows of `dtype`: row 8i + b
+    is bit b of packed row i."""
+    shifts = torch.arange(8, dtype=torch.int32, device=blk.device)
+    bits = (blk.to(torch.int32)[:, None, :] >> shifts[:, None]) & 1
+    return bits.reshape(-1, blk.shape[1]).to(dtype)
+
+
+def _cross_plain(Up: torch.Tensor, Vp: torch.Tensor, w: torch.Tensor,
+                 n_limbs: int, kt: int, row0: int,
+                 n_rows: int) -> torch.Tensor:
+    """Rows [row0, row0 + n_rows) of U^T diag(w) V mod 2^32, as int64 (the
+    Gram of one database when Up is Vp).
+
+    Unpacks K blocks of patterns to 0/1 rows and multiplies them per 7-bit
+    limb: a block's partial is at most 127 * 8192 < 2^53."""
+    mm_dtype = _mm_dtype(Up.device)
     # undo pk_weight_order: w_nat[8r + b] is the weight of pattern 8r + b
     w_nat = (w.reshape(-1, 8, kt // 8).transpose(1, 2).reshape(-1)
              .to(torch.int64) & 0xFFFFFFFF)
-    shifts = torch.arange(8, dtype=torch.int32, device=dev)
-    acc = torch.zeros((n_rows, S), dtype=torch.int64, device=dev)
+    acc = torch.zeros((n_rows, Vp.shape[1]), dtype=torch.int64,
+                      device=Up.device)
     step = 1024                               # packed rows per K block
-    for r0 in range(0, Bp.shape[0], step):
-        blk = Bp[r0:r0 + step].to(torch.int32)
-        bits = ((blk[:, None, :] >> shifts[:, None]) & 1).reshape(-1, S)
-        bits = bits.to(mm_dtype)               # row 8r + b is pattern 8r + b
-        lhs = bits[:, row0:row0 + n_rows]
-        wk = w_nat[8 * r0:8 * r0 + bits.shape[0]]
+    for r0 in range(0, Up.shape[0], step):
+        lhs = _unpack_bits(Up[r0:r0 + step, row0:row0 + n_rows], mm_dtype)
+        rhs = _unpack_bits(Vp[r0:r0 + step], mm_dtype)
+        wk = w_nat[8 * r0:8 * r0 + rhs.shape[0]]
         for l in range(n_limbs):
             wl = ((wk >> (LIMB_BITS * l)) & 0x7F).to(mm_dtype)
-            part = ((lhs * wl[:, None]).T @ bits).to(torch.int64)
+            part = ((lhs * wl[:, None]).T @ rhs).to(torch.int64)
             acc = (acc + (part << (LIMB_BITS * l))) & 0xFFFFFFFF
     return acc
 
@@ -204,7 +222,7 @@ def gram_u32_pk_tri_plain(Bp: torch.Tensor, w: torch.Tensor,
     """Plain PyTorch version of gram_u32_pk_tri, on any device."""
     _check_gram(Bp, w, C, n_limbs, kt, tile)
     S = C.shape[0]
-    acc = _gram_plain(Bp, w, n_limbs, kt, 0, S)
+    acc = _cross_plain(Bp, Bp, w, n_limbs, kt, 0, S)
     band = torch.arange(S, device=C.device) // tile
     lower = band[:, None] >= band[None, :]
     old = C.to(torch.int64) & 0xFFFFFFFF
@@ -244,10 +262,129 @@ def gram_u32_pk_rows_plain(Bp: torch.Tensor, w: torch.Tensor,
                            kt: int = KT, tile: int = TILE) -> torch.Tensor:
     """Plain PyTorch version of gram_u32_pk_rows, on any device."""
     _check_rows(Bp, w, C_stripe, rt0, n_limbs, kt, tile)
-    acc = _gram_plain(Bp, w, n_limbs, kt, rt0 * tile, C_stripe.shape[0])
+    acc = _cross_plain(Bp, Bp, w, n_limbs, kt, rt0 * tile,
+                       C_stripe.shape[0])
     old = C_stripe.to(torch.int64) & 0xFFFFFFFF
     C_stripe.copy_(_to_int32((old + acc) & 0xFFFFFFFF))
     return C_stripe
+
+
+def _check_cross(Up, Vp, w, C, n_limbs, kt) -> None:
+    _check_packed(Up, w, n_limbs, kt)
+    _require(Vp.dtype == torch.uint8 and Vp.dim() == 2
+             and Vp.shape[0] == Up.shape[0],
+             "Vp must be uint8[P/8, S2] with Up's P/8 rows")
+    _require(C.dtype == torch.int32 and C.dim() == 2
+             and tuple(C.shape) == (Up.shape[1], Vp.shape[1]),
+             "C must be int32[S1, S2] with S1 = Up.shape[1], "
+             "S2 = Vp.shape[1]")
+    _require(all(t.is_contiguous() for t in (Up, Vp, w, C)),
+             "operands must be contiguous")
+    _require(C.shape[0] % 128 == 0 and C.shape[1] % 128 == 0,
+             "S1 and S2 must be multiples of 128")
+
+
+def cross_u32_pk(Up: torch.Tensor, Vp: torch.Tensor, w: torch.Tensor,
+                 C: torch.Tensor, *, n_limbs: int,
+                 kt: int = KT) -> torch.Tensor:
+    """C += U^T diag(w) V over the full rectangle, in place, exact mod
+    2^32: row p of the packed operands Up uint8[P/8, S1] and Vp
+    uint8[P/8, S2] is one pattern (db2db: one pattern pair; the parts
+    grid: one union k-mer) of each side, w its weight.
+
+    Replaces kmerdb_tpu/ops/pallas_gram.py cross_u32_pk with the int8
+    engine: 7-bit weight limbs.  CUDA tensors go to csrc/cross_pk.cu; CPU
+    tensors to cross_u32_pk_plain."""
+    _check_cross(Up, Vp, w, C, n_limbs, kt)
+    if _kernel_device(Up, Vp, w, C) == "cpu":
+        return cross_u32_pk_plain(Up, Vp, w, C, n_limbs=n_limbs, kt=kt)
+    _require(C.data_ptr() % 16 == 0, "C must be 16-byte aligned")
+    _cuda_call(_cuda.lib().kmerdb_cross_pk, Up.data_ptr(), Vp.data_ptr(),
+               w.data_ptr(), C.data_ptr(), Up.shape[0], C.shape[0],
+               C.shape[1], n_limbs, kt, device=C.device)
+    cross_u32_pk.launches += 1
+    return C
+
+
+cross_u32_pk.launches = 0
+
+
+def cross_u32_pk_plain(Up: torch.Tensor, Vp: torch.Tensor, w: torch.Tensor,
+                       C: torch.Tensor, *, n_limbs: int,
+                       kt: int = KT) -> torch.Tensor:
+    """Plain PyTorch version of cross_u32_pk, on any device."""
+    _check_cross(Up, Vp, w, C, n_limbs, kt)
+    acc = _cross_plain(Up, Vp, w, n_limbs, kt, 0, C.shape[0])
+    old = C.to(torch.int64) & 0xFFFFFFFF
+    C.copy_(_to_int32((old + acc) & 0xFFFFFFFF))
+    return C
+
+
+#: 8-bit limbs of the hit counts in matmul_u32_acc
+H_LIMB_BITS = 8
+
+
+def _check_matmul(H, B, C, n_limbs) -> None:
+    _require(H.dtype in (torch.uint8, torch.int32) and H.dim() == 2,
+             "H must be uint8 or int32 (uint32 bits) [Q, P]")
+    _require(B.dtype == torch.int8 and B.dim() == 2
+             and B.shape[0] == H.shape[1],
+             "B must be int8[P, S] with P = H.shape[1]")
+    _require(C.dtype == torch.int32
+             and tuple(C.shape) == (H.shape[0], B.shape[1]),
+             "C must be int32[Q, S] with Q = H.shape[0], S = B.shape[1]")
+    _require(all(t.is_contiguous() for t in (H, B, C)),
+             "operands must be contiguous")
+    _require(all(n % 128 == 0 for n in (*H.shape, B.shape[1])),
+             "Q, P and S must be multiples of 128")
+    _require(n_limbs == 1 if H.dtype == torch.uint8
+             else 1 <= n_limbs <= 32 // H_LIMB_BITS,
+             "n_limbs must be 1 for uint8 H and lie in 1..4 for int32 H")
+
+
+def matmul_u32_acc(H: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *,
+                   n_limbs: int) -> torch.Tensor:
+    """C += H @ B, in place, exact mod 2^32: H uint8 (one limb) or uint32
+    bits in int32 storage [Q, P], split into n_limbs 8-bit limbs; B int8
+    0/1 [P, S]; C int32[Q, S].
+
+    Replaces kmerdb_tpu/ops/pallas_gram.py matmul_u32_acc.  CUDA tensors
+    go to csrc/matmul_acc.cu; CPU tensors to matmul_u32_acc_plain."""
+    _check_matmul(H, B, C, n_limbs)
+    if _kernel_device(H, B, C) == "cpu":
+        return matmul_u32_acc_plain(H, B, C, n_limbs=n_limbs)
+    _require(all(t.data_ptr() % 16 == 0 for t in (H, B, C)),
+             "H, B and C must be 16-byte aligned")
+    _cuda_call(_cuda.lib().kmerdb_matmul_acc, H.data_ptr(), H.element_size(),
+               B.data_ptr(), C.data_ptr(), H.shape[0], H.shape[1],
+               B.shape[1], n_limbs, device=C.device)
+    matmul_u32_acc.launches += 1
+    return C
+
+
+matmul_u32_acc.launches = 0
+
+
+def matmul_u32_acc_plain(H: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                         *, n_limbs: int) -> torch.Tensor:
+    """Plain PyTorch version of matmul_u32_acc, on any device.  Per K
+    block of 4,096 patterns and limb the partial is at most 255 * 4096."""
+    _check_matmul(H, B, C, n_limbs)
+    mm_dtype = _mm_dtype(C.device)
+    # widen before masking: uint32 counts >= 2^31 are negative in int32
+    h = H.to(torch.int64) & 0xFFFFFFFF
+    acc = torch.zeros(C.shape, dtype=torch.int64, device=C.device)
+    step = 4096
+    for k0 in range(0, H.shape[1], step):
+        # the kernel reads B's bytes unsigned
+        bk = B[k0:k0 + step].view(torch.uint8).to(mm_dtype)
+        for l in range(n_limbs):
+            hl = (h[:, k0:k0 + step] >> (H_LIMB_BITS * l)) & 0xFF
+            part = (hl.to(mm_dtype) @ bk).to(torch.int64)
+            acc = (acc + (part << (H_LIMB_BITS * l))) & 0xFFFFFFFF
+    old = C.to(torch.int64) & 0xFFFFFFFF
+    C.copy_(_to_int32((old + acc) & 0xFFFFFFFF))
+    return C
 
 
 def _narrow(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

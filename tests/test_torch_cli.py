@@ -79,9 +79,9 @@ def test_distance_matches_jax(corpus, monkeypatch):
 
 @pytest.mark.parametrize("argv,env", [
     (["all2all-sp", "DB", "OUT"], {}),
-    (["all2all-parts", "LIST", "OUT"], {}),
-    (["new2all", "DB", "LIST", "OUT"], {}),
-    (["one2all", "DB", "LIST", "OUT"], {}),
+    (["all2all-parts", "-mesh", "2", "LIST", "OUT"], {}),
+    (["new2all", "-mesh", "2", "DB", "LIST", "OUT"], {}),
+    (["new2all", "DB", "LIST", "OUT"], {"KMERDB_DEVICE_INGEST": "1"}),
     (["all2all", "-from-fasta", "LIST", "OUT"], {}),
     (["all2all", "-mesh", "2", "DB", "OUT"], {}),
     (["all2all", "DB", "OUT"], {"KMERDB_MESH": "auto"}),
@@ -110,8 +110,17 @@ def run(lst, out_dir):
     db = os.path.join(out_dir, "nojax.db")
     out = os.path.join(out_dir, "nojax.csv")
     assert main(["build", "-k", "18", lst, db]) == 0
-    os.environ["KMERDB_A2A_DEVICE"] = "0"
+    for var in ("KMERDB_A2A_DEVICE", "KMERDB_N2A_DEVICE", "KMERDB_D2D_DEVICE",
+                "KMERDB_GRID_DEVICE"):
+        os.environ[var] = "0"
     assert main(["all2all", db, out]) == 0
+    samples = [s for s in open(lst).read().split() if s]
+    assert main(["new2all", db, lst, out + ".n2a"]) == 0
+    assert main(["one2all", db, samples[0] + ".fasta", out + ".o2a"]) == 0
+    parts = os.path.join(out_dir, "nojax.parts")
+    with open(parts, "w") as f:
+        f.writelines([db + os.linesep] * 2)
+    assert main(["all2all-parts", parts, out + ".parts"]) == 0
     # the host modes never pay torch's multi-second import
     assert "torch" not in sys.modules
     import kmerdb_tpu_torch
@@ -127,8 +136,9 @@ if __name__ == "__main__":
 
 
 def test_port_runs_with_jax_blocked(corpus, monkeypatch):
-    """Every port module imports, and build + host-tier all2all run
-    without importing torch, in a process where importing jax fails."""
+    """Every port module imports, and build and the host tiers of
+    all2all, new2all, one2all and all2all-parts run without importing
+    torch, in a process where importing jax fails."""
     d, lst, jax_db, _ = corpus
     monkeypatch.setenv("KMERDB_A2A_DEVICE", "0")
     want = str(d / "want.csv")
@@ -140,3 +150,5 @@ def test_port_runs_with_jax_blocked(corpus, monkeypatch):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert (d / "nojax.csv").read_bytes() == pathlib.Path(want).read_bytes()
+    for mode in ("n2a", "o2a", "parts"):
+        assert (d / f"nojax.csv.{mode}").stat().st_size > 0

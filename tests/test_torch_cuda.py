@@ -189,3 +189,104 @@ def test_all2all_device_rows_matches_host_tier(card, monkeypatch,
         if bounds is not None and bounds[0] == lo:
             sp = st["sparse_pull"]
             assert 0 < sp["tiles_pulled"] < sp["tiles_total"]
+
+
+@pytest.mark.parametrize("Q,P,S,wide,n_limbs", [
+    (128, 512, 256, False, 1), (256, 1024, 384, True, 3),
+    (128, 384, 128, True, 4)])
+def test_matmul_acc_kernel_matches_plain(card, Q, P, S, wide, n_limbs):
+    """uint8 H over every byte 0..255 (the unsigned dp4a), uint32 H of 3
+    and of 4 limbs at 2^31 and above; C seeded non-zero."""
+    rng = np.random.default_rng(Q + P + S)
+    B = torch.from_numpy((rng.random((P, S)) < 0.3).astype(np.int8)).to(card)
+    if wide:
+        lo = 1 << 31 if n_limbs == 4 else 0
+        H = rng.integers(lo, 1 << (8 * n_limbs), size=(Q, P),
+                         dtype=np.uint64).astype(np.uint32).view(np.int32)
+    else:
+        H = rng.integers(0, 256, size=(Q, P), dtype=np.uint8)
+        H[0, :256] = np.arange(256)
+    H = torch.from_numpy(H).to(card)
+    C = torch.from_numpy(_u32(rng, (Q, S)).view(np.int32)).to(card)
+    n = gram.matmul_u32_acc.launches
+    plain = gram.matmul_u32_acc_plain(H, B, C.clone(), n_limbs=n_limbs)
+    gram.matmul_u32_acc(H, B, C, n_limbs=n_limbs)
+    torch.cuda.synchronize()
+    assert gram.matmul_u32_acc.launches == n + 1
+    assert torch.equal(C, plain)
+
+
+@pytest.mark.parametrize("S1,S2,rows,n_limbs,kt", [
+    (128, 256, 1024, 3, 512), (384, 128, 2048, 1, 256),
+    (256, 640, 1024, 5, 1024)])
+def test_cross_kernel_matches_plain(card, S1, S2, rows, n_limbs, kt):
+    rng = np.random.default_rng(S1 + S2 + n_limbs)
+    Up = torch.from_numpy(rng.integers(0, 256, size=(rows // 8, S1),
+                                       dtype=np.uint8)).to(card)
+    Vp = torch.from_numpy(rng.integers(0, 256, size=(rows // 8, S2),
+                                       dtype=np.uint8)).to(card)
+    w = _u32(rng, rows) >> np.uint32(max(0, 32 - 7 * n_limbs))
+    w = torch.from_numpy(gram.pk_weight_order(w, kt).view(np.int32)).to(card)
+    C = torch.from_numpy(_u32(rng, (S1, S2)).view(np.int32)).to(card)
+    n = gram.cross_u32_pk.launches
+    plain = gram.cross_u32_pk_plain(Up, Vp, w, C.clone(), n_limbs=n_limbs,
+                                    kt=kt)
+    gram.cross_u32_pk(Up, Vp, w, C, n_limbs=n_limbs, kt=kt)
+    torch.cuda.synchronize()
+    assert gram.cross_u32_pk.launches == n + 1
+    assert torch.equal(C, plain)
+
+
+def _built_db(rng, n, pool, core):
+    from kmerdb_tpu.models import builder
+    samples = [(f"s{i}", np.unique(np.concatenate([core, rng.choice(
+        pool, size=int(rng.integers(100, 600)), replace=False)])))
+        for i in range(n)]
+    return builder.add_samples(
+        KmerPatternDb(kmer_length=18, fraction=1.0, alphabet_name="nt"),
+        samples)
+
+
+@pytest.mark.skipif(not native.available, reason="no native host runtime")
+def test_query_and_cross_tiers_match_host_tiers(card, monkeypatch):
+    """new2all (uint16-range and 2-limb hit counts), db2db (a 17,000 k-mer
+    core: three 7-bit limbs) and both device grids on the card, against
+    the host tiers."""
+    from kmerdb_tpu_torch.ops import fused, intersect
+    rng = np.random.default_rng(21)
+    pool = rng.integers(0, 1 << 40, size=20_000, dtype=np.uint64)
+    core = np.unique(pool[:17_000])
+    dbs = [_built_db(rng, n, pool[17_000:], core) for n in (130, 70, 200)]
+    queries = [np.unique(rng.choice(pool, size=int(rng.integers(50, 18_000)),
+                                    replace=False)) for _ in range(140)]
+    queries[3] = np.empty(0, dtype=np.uint64)
+    host = intersect.many2all_counts(dbs[0], queries, use_device=False)
+    n = gram.matmul_u32_acc.launches
+    got = intersect.many2all_counts(dbs[0], queries, use_device=True)
+    assert gram.matmul_u32_acc.launches > n
+    np.testing.assert_array_equal(got, host)
+
+    monkeypatch.setenv("KMERDB_D2D_DEVICE", "1")
+    n = gram.cross_u32_pk.launches
+    d2d = {(i, j): intersect.db2db_counts(dbs[i], dbs[j])
+           for i in range(3) for j in range(i)}
+    assert gram.cross_u32_pk.launches > n
+    monkeypatch.setenv("KMERDB_D2D_DEVICE", "0")
+    for (i, j), X in d2d.items():
+        np.testing.assert_array_equal(X, intersect.db2db_counts(dbs[i],
+                                                                dbs[j]))
+    assert max(int(X.max()) for X in d2d.values()) >= 1 << 14
+
+    diag = [native.a2a_dense(db.pattern_offsets, db.pattern_sample_ids,
+                             db.pattern_num_kmers, db.n_samples)
+            for db in dbs]
+    grid = fused.grid_group_counts(dbs)
+    streamed = dict(fused.grid_rows_streamed(
+        lambda i: dbs[i], [db.n_samples for db in dbs],
+        max_count=int(max(db.sample_kmer_counts.max() for db in dbs))))
+    for i in range(3):
+        np.testing.assert_array_equal(grid[i, i], diag[i])
+        np.testing.assert_array_equal(streamed[i][i], diag[i])
+        for j in range(i):
+            np.testing.assert_array_equal(grid[i, j], d2d[i, j])
+            np.testing.assert_array_equal(streamed[i][j], d2d[i, j])
