@@ -54,14 +54,37 @@ one per case), each with its seconds:
     streamed device grid, (c) per cell on the device tiers, each with its
     launches;
 15. the oracle: the CSVs of (a), (b) and (c) equal the host tiers' byte
-    for byte.
+    for byte;
+16. the scan tier's kernels (KMERDB_A2A_PALLAS=0) against their plain
+    versions, exactly, at its shapes on the 4,096-sample database: the
+    first chunk of ``_scan_chunks`` (its incidence, P_pad, S_pad 4096),
+    ``gram_u32_tri`` and ``gram_u32`` at the database's own limb count and
+    at 4 limbs with distinct random weights (255, 2^8, 2^31 and above),
+    ``matmul_u32`` at Q_pad 512 with uint8 H over every byte and uint32 H
+    of 4 limbs at 2^31 and above;
+17. ``all2all`` on the scan tier through the CLI (KMERDB_A2A_DEVICE=1
+    KMERDB_A2A_PALLAS=0): one ``gram_u32_tri`` launch a chunk and no
+    packed kernel, its ``scan_stats``, the CSV byte-equal to phase 6's
+    host tier CSV; then C of the triangle and of the full grid
+    (``gram_u32``), each equal to phase 6's host C++ tier C;
+18. ``new2all`` of phase 12's 1,100 queries on the scan tier through the
+    CLI (KMERDB_N2A_DEVICE=1 KMERDB_A2A_PALLAS=0), dense: one
+    ``matmul_u32`` launch a chunk, the CSV byte-equal to phase 13's host
+    tier CSV.
 
-The next-to-last line is a JSON object of the kernels, the last
+Each kernel's record holds its time, its plain version's, the time of a
+PyTorch call that computes the same function where one exists
+(``library_ms``, else null), and its bound: the larger of its integer
+operations over the int8 peak and its bytes (inputs read once, outputs
+written once) over the memory rate, both of an H100 SXM at 700 W.  The
+next-to-last line is a JSON object of the kernels, the last
 ``{"ok": true, "device": {...}}``.  A failure exits non-zero without them.
-The script and the port import nothing of JAX.
+The script and the port import nothing of JAX: an import blocker refuses
+kmerdb_tpu and jax before the port is imported.
 """
 
 import filecmp
+import importlib.abc
 import json
 import os
 import shutil
@@ -86,10 +109,34 @@ STRIPE_CHECK = 11 * 128
 N_QUERIES = 1100
 #: phase 14: all2all-parts over the scale corpus in parts of this size
 PART_SIZE = 1024
+#: phase 16: matmul_u32's query rows, new2all's flush
+SCAN_Q_PAD = 512
+#: an H100 SXM's dense int8 tensor-core peak and memory rate (NVIDIA's data
+#: sheet, at its 700 W limit): the bounds of every kernel record
+INT8_OPS_PER_S = 1979e12
+BYTES_PER_S = 3.35e12
 
 
 class PhaseError(RuntimeError):
     pass
+
+
+class _RefuseJax(importlib.abc.MetaPathFinder):
+    """Refuses kmerdb_tpu, kmerdb_tpu.* and jax, jax.*; lets the rest,
+    kmerdb_tpu_torch among it, through."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("kmerdb_tpu", "jax"):
+            raise ImportError(f"{name} is refused: kmerdb_tpu_torch stands "
+                              f"alone")
+        return None
+
+
+def refuse_jax_imports() -> None:
+    """Install the import blocker before anything of the port is imported:
+    any import of the JAX package or of JAX then fails loudly."""
+    if not any(isinstance(f, _RefuseJax) for f in sys.meta_path):
+        sys.meta_path.insert(0, _RefuseJax())
 
 
 def _check(ok: bool, what: str) -> None:
@@ -119,6 +166,14 @@ def _err(torch, a, b) -> int:
     """Largest absolute difference of two count tensors, as uint32."""
     return int((_u32(torch, a) - _u32(torch, b)).abs().max()) if a.numel() \
         else 0
+
+
+def _bound(ops: float, nbytes: float) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take for `ops`
+    int8 operations and `nbytes` bytes moved, and which of the two sets
+    it."""
+    t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
 def _fmt(d: dict) -> str:
@@ -175,11 +230,13 @@ def check_kernels(torch, gram, device_a2a, db, rng) -> dict:
         plain_ms = _cuda_ms(
             torch, lambda: gram.gram_u32_pk_tri_plain(Bp, w, Ct, **kw), 2)
         nt = S_pad // tile
-        ops = 2.0 * rows_check * S_pad * S_pad * (nt + 1) / (2 * nt) * n_limbs
+        tri = (nt + 1) / (2 * nt)
+        ops = 2.0 * rows_check * S_pad * S_pad * tri * n_limbs
         out["gram_pk_tri"].append(dict(
             n_limbs=n_limbs, rows=rows_check, S_pad=S_pad, kt=kt_check,
             tile=tile, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            tops=ops / ms / 1e9))
+            tops=ops / ms / 1e9, ops=ops,
+            bytes=rows_check * (S_pad // 8 + 4) + 8 * S_pad * S_pad * tri))
     for dtype in (torch.int16, torch.int32):
         tk = gram.tril_tiles(Ck, dtype)
         tp = gram.tril_tiles_plain(Ck, dtype)
@@ -193,7 +250,7 @@ def check_kernels(torch, gram, device_a2a, db, rng) -> dict:
         out["tril_tiles"].append(dict(
             dtype="uint16" if dtype == torch.int16 else "uint32",
             S_pad=S_pad, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            gb_per_s=moved / ms / 1e6))
+            gb_per_s=moved / ms / 1e6, ops=0.0, bytes=moved))
     return out
 
 
@@ -235,7 +292,8 @@ def check_stripe_kernels(torch, gram, device_a2a, db, rng) -> dict:
         out["gram_pk_rows"].append(dict(
             n_limbs=n_limbs, rows=rows_check, R=R, rt0=rt0, S_pad=S_pad,
             kt=kt_check, tile=tile, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, tops=ops / ms / 1e9))
+            plain_ms=plain_ms, tops=ops / ms / 1e9, ops=ops,
+            bytes=rows_check * (S_pad // 8 + 4) + 8 * R * S_pad))
         del Bp, w, C0, Cp, Ct
 
     # the group's real counts in that stripe, at the route's own kt
@@ -254,9 +312,14 @@ def check_stripe_kernels(torch, gram, device_a2a, db, rng) -> dict:
                                     f"version ({name}, max_abs_err={err})")
         ms = _cuda_ms(torch, lambda: gram.cast_rows(C), 50)
         plain_ms = _cuda_ms(torch, lambda: gram.cast_rows_plain(C), 10)
+        # the library call: one PyTorch cast, for the same low 16 bits
+        library_ms = _cuda_ms(torch, lambda: C.to(torch.int16), 50)
         out["cast_rows"].append(dict(
             stripe=name, shape=f"{R}x{S_pad}", max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, gb_per_s=6 * C.numel() / ms / 1e6))
+            plain_ms=plain_ms, library_ms=library_ms,
+            library_equal=torch.equal(C.to(torch.int16), ck),
+            gb_per_s=6 * C.numel() / ms / 1e6, ops=0.0,
+            bytes=6 * C.numel()))
 
     top = int(_u32(torch, Cr).max())
     survivors = None
@@ -278,7 +341,8 @@ def check_stripe_kernels(torch, gram, device_a2a, db, rng) -> dict:
         out["filter_colsum"].append(dict(
             bounds=name, lo=lo, tiles_with_survivors=int(
                 np.count_nonzero(tile_cnt)), tiles=tile_cnt.size,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, ops=0.0,
+            bytes=4 * C.numel() + 4 * fk.numel()))
 
     _check(survivors[0].size > 0, "the selective bound kept no tile")
     i_tab, j_tab = gram.tile_tables(*survivors, dev)
@@ -296,7 +360,8 @@ def check_stripe_kernels(torch, gram, device_a2a, db, rng) -> dict:
         out["gather_tiles"].append(dict(
             dtype="uint16" if dtype == torch.int16 else "uint32",
             tiles=int(i_tab.numel()), max_abs_err=err, ms=ms,
-            plain_ms=plain_ms))
+            plain_ms=plain_ms, ops=0.0,
+            bytes=gk.numel() * (4 + gk.element_size()) + 8 * i_tab.numel()))
     return out
 
 
@@ -338,7 +403,9 @@ def check_query_kernels(torch, gram, intersect, db, queries, rng) -> list:
         out.append(dict(H=h_type, n_limbs=n_limbs, Q_pad=Q_pad, P_pad=P_pad,
                         S_pad=S_pad, chunks=n_chunks, route_limbs=route_limbs,
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        tops=ops / ms / 1e9))
+                        tops=ops / ms / 1e9, ops=ops,
+                        bytes=Q_pad * P_pad * H.element_size()
+                        + P_pad * S_pad + 8 * Q_pad * S_pad))
         del H, Ck, Cp, Ct
     return out
 
@@ -388,14 +455,16 @@ def check_cross_kernels(torch, gram, device_a2a, db, rng) -> list:
         ops = 2.0 * rows * S1 * S2 * n_limbs
         out.append(dict(shape=shape, S1=S1, S2=S2, rows=rows, kt=kt,
                         n_limbs=n_limbs, max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms, tops=ops / ms / 1e9))
+                        plain_ms=plain_ms, tops=ops / ms / 1e9, ops=ops,
+                        bytes=rows * ((S1 + S2) // 8 + 4) + 8 * S1 * S2))
     return out
 
 
 def new2all_phases(torch, cli, gram, intersect, workdir, db_path, paths,
                    say) -> dict:
     """Phases 12 and 13: new2all through the CLI on the device and host
-    tiers, dense and sparse, and one2all of one genome."""
+    tiers, dense and sparse, and one2all of one genome.  The query list
+    and the host tier's dense CSV stay for phase 18 (runs["files"])."""
     query_list = os.path.join(workdir, "queries.list")
     with open(query_list, "w") as f:
         f.write("\n".join(paths[:N_QUERIES]) + "\n")
@@ -454,11 +523,15 @@ def new2all_phases(torch, cli, gram, intersect, workdir, db_path, paths,
         got = f.read().splitlines()[2 + pick].split(",")[1:]
     _check(got == want, f"one2all of genome {pick} differs from its "
                         f"new2all row")
-    for path in (*csvs.values(), o2a, query_list):
-        os.remove(path)
+    for key, path in csvs.items():
+        if key != ("0", "dense"):
+            os.remove(path)
+    os.remove(o2a)
     say(f"[13 oracle] one2all of genome {pick} == its new2all row "
         f"({len([v for v in want if v])} fields); "
         f"{time.perf_counter() - t:.2f} s")
+    runs["files"] = dict(queries=query_list, host_csv=csvs["0", "dense"],
+                         flushes=flushes)
     return runs
 
 
@@ -536,6 +609,171 @@ def parts_phases(torch, cli, gram, fused, workdir, paths, say) -> dict:
     return runs
 
 
+def _distinct_weights(rng, n: int) -> np.ndarray:
+    """n distinct random uint32 weights among them 255, 2^8, 2^31 and
+    2^32 - 1."""
+    while True:
+        w = rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+        w[:4] = (255, 256, 1 << 31, (1 << 32) - 1)
+        if np.unique(w).size == n:
+            return w.astype(np.uint32)
+
+
+def check_scan_kernels(torch, gram, intersect, db, rng) -> dict:
+    """Phase 16: the scan tier's kernels == plain versions at its shapes on
+    the first chunk of _scan_chunks: gram_u32_tri and gram_u32 at the
+    database's limb count (the bits above it dropped) and at 4 limbs,
+    matmul_u32 at Q_pad 512 with uint8 H over every byte and uint32 H of 4
+    limbs at 2^31 and above."""
+    dev = torch.device("cuda")
+    bounds, P_pad, S_pad = intersect._scan_chunks(db)
+    B_np = np.zeros((P_pad, S_pad), np.int8)
+    intersect._fill_incidence(*intersect._chunk_cells(
+        db, db.element_pattern_ids(), bounds[0], bounds[1]), B_np)
+    B = torch.from_numpy(B_np).to(dev)
+    del B_np
+    route_limbs = max(1, (int(db.pattern_num_kmers.max()).bit_length() + 7)
+                      // 8)
+    w = torch.from_numpy(_distinct_weights(rng, P_pad).view(np.int32)).to(dev)
+    nt = S_pad // gram.BLOCK
+    shape = dict(P_pad=P_pad, S_pad=S_pad, chunks=len(bounds) - 1,
+                 route_limbs=route_limbs)
+    out = {"gram_u32_tri": [], "gram_u32": [], "matmul_u32": []}
+    for n_limbs in sorted({route_limbs, 4}):
+        for name, frac in (("gram_u32_tri", (nt + 1) / (2 * nt)),
+                           ("gram_u32", 1.0)):
+            kern, plain = getattr(gram, name), getattr(gram, name + "_plain")
+            Ck = kern(B, w, n_limbs=n_limbs)
+            Cp = plain(B, w, n_limbs=n_limbs)
+            torch.cuda.synchronize()
+            err = _err(torch, Ck, Cp)
+            _check(torch.equal(Ck, Cp) and bool(Ck.any()),
+                   f"{name} differs from its plain version (n_limbs="
+                   f"{n_limbs}, max_abs_err={err})")
+            del Ck, Cp
+            ms = _cuda_ms(torch, lambda: kern(B, w, n_limbs=n_limbs), 5)
+            plain_ms = _cuda_ms(torch, lambda: plain(B, w, n_limbs=n_limbs),
+                                1)
+            ops = 2.0 * P_pad * S_pad * S_pad * frac * n_limbs
+            out[name].append(dict(
+                n_limbs=n_limbs, **shape, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, tops=ops / ms / 1e9, ops=ops,
+                bytes=P_pad * (S_pad + 4) + 4 * S_pad * S_pad))
+    for h_type, n_limbs in (("uint8", 1), ("uint32", 4)):
+        if n_limbs == 1:
+            H = rng.integers(0, 256, size=(SCAN_Q_PAD, P_pad), dtype=np.uint8)
+            H[:, :256] = np.arange(256, dtype=np.uint8)    # every byte
+        else:
+            H = rng.integers(1 << 31, 1 << 32, size=(SCAN_Q_PAD, P_pad),
+                             dtype=np.uint64).astype(np.uint32).view(np.int32)
+        H = torch.from_numpy(H).to(dev)
+        Ck = gram.matmul_u32(H, B, n_limbs=n_limbs)
+        Cp = gram.matmul_u32_plain(H, B, n_limbs=n_limbs)
+        torch.cuda.synchronize()
+        err = _err(torch, Ck, Cp)
+        _check(torch.equal(Ck, Cp) and bool(Ck.any()),
+               f"matmul_u32 differs from its plain version ({h_type} H, "
+               f"max_abs_err={err})")
+        del Ck, Cp
+        ms = _cuda_ms(torch, lambda: gram.matmul_u32(H, B, n_limbs=n_limbs), 5)
+        plain_ms = _cuda_ms(torch, lambda: gram.matmul_u32_plain(
+            H, B, n_limbs=n_limbs), 2)
+        ops = 2.0 * SCAN_Q_PAD * P_pad * S_pad * n_limbs
+        out["matmul_u32"].append(dict(
+            H=h_type, n_limbs=n_limbs, Q_pad=SCAN_Q_PAD, **shape,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, tops=ops / ms / 1e9,
+            ops=ops, bytes=SCAN_Q_PAD * P_pad * H.element_size()
+            + P_pad * S_pad + 4 * SCAN_Q_PAD * S_pad))
+        del H
+    return out
+
+
+def _only(n: dict, name: str) -> bool:
+    """Whether `name` is the one kernel launched in n."""
+    return n[name] > 0 and not any(v for k, v in n.items() if k != name)
+
+
+def scan_phases(torch, cli, gram, intersect, db, db_path, C_host, host_csv,
+                n2a_files, workdir, say) -> dict:
+    """Phases 17 and 18: all2all and new2all on the scan tier through the
+    CLI, and the scan's C of both grids, against the host tiers."""
+    runs = {}
+    os.environ["KMERDB_A2A_PALLAS"] = "0"
+    _set_route(device="1")
+    scan_csv = os.path.join(workdir, "scan.csv")
+    intersect.scan_stats.clear()
+    _reset_launches(gram)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    rc = cli(["all2all", db_path, scan_csv])
+    wall = time.perf_counter() - t
+    n, st = _launches(gram), dict(intersect.scan_stats)
+    _check(rc == 0, f"all2all on the scan tier exited {rc}")
+    _check(_only(n, "gram_u32_tri") and n["gram_u32_tri"] == st["chunks"],
+           f"all2all's scan tier launched {n}, expected one gram_u32_tri a "
+           f"chunk ({st.get('chunks')})")
+    runs["tri"] = dict(wall=wall, launches=n, stats=st)
+    busy = st.get("gram_s", 0.0)
+    say(f"[17 all2all scan] {wall:.3f} s CLI call (kernels busy {busy:.4f} s "
+        f"= {100 * busy / wall:.1f}%), launches "
+        f"{ {k: v for k, v in n.items() if v} }, peak device memory "
+        f"{torch.cuda.max_memory_allocated() >> 20} MiB; scan_stats "
+        + _fmt(st))
+    _check(filecmp.cmp(scan_csv, host_csv, shallow=False),
+           "the scan tier's all2all CSV differs from the host tier's")
+    say(f"[17 oracle] all2all scan CSV == host tier CSV "
+        f"({os.path.getsize(scan_csv)} bytes)")
+    os.remove(scan_csv)
+    for triangle, name in ((True, "gram_u32_tri"), (False, "gram_u32")):
+        intersect.scan_stats.clear()
+        _reset_launches(gram)
+        C = intersect._a2a_scan(db, triangle=triangle)
+        n, st = _launches(gram), dict(intersect.scan_stats)
+        _check(_only(n, name) and n[name] == st["chunks"],
+               f"_a2a_scan(triangle={triangle}) launched {n}")
+        n_diff = int(np.count_nonzero(C != C_host))
+        _check(n_diff == 0, f"the scan tier's C ({name}) differs from the "
+                            f"host C++ tier in {n_diff} cells")
+        runs["full" if name == "gram_u32" else "tri_direct"] = dict(
+            launches=n, stats=st)
+        say(f"[17 oracle] scan C ({name}, {n[name]} launches) == host C++ "
+            f"tier C; " + _fmt(st))
+        del C
+
+    os.environ["KMERDB_N2A_DEVICE"] = "1"
+    n2a_csv = os.path.join(workdir, "n2a-scan.csv")
+    intersect.scan_stats.clear()
+    intersect.n2a_stats.clear()
+    _reset_launches(gram)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    rc = cli(["new2all", db_path, n2a_files["queries"], n2a_csv])
+    wall = time.perf_counter() - t
+    n, st = _launches(gram), dict(intersect.scan_stats)
+    _check(rc == 0, f"new2all on the scan tier exited {rc}")
+    _check(_only(n, "matmul_u32") and n["matmul_u32"] == st["chunks"]
+           and st["calls"] == n2a_files["flushes"],
+           f"new2all's scan tier launched {n}, scan_stats {st}")
+    runs["n2a"] = dict(wall=wall, launches=n, stats=st)
+    busy = st.get("matmul_s", 0.0)
+    say(f"[18 new2all scan] {wall:.3f} s CLI call ({N_QUERIES} queries x "
+        f"{N_SAMPLES} samples; kernels busy {busy:.4f} s = "
+        f"{100 * busy / wall:.1f}%), launches "
+        f"{ {k: v for k, v in n.items() if v} }, peak device memory "
+        f"{torch.cuda.max_memory_allocated() >> 20} MiB; scan_stats "
+        + _fmt(st) + "; n2a_stats " + _fmt(intersect.n2a_stats))
+    _check(filecmp.cmp(n2a_csv, n2a_files["host_csv"], shallow=False),
+           "the scan tier's new2all CSV differs from the host tier's")
+    say(f"[18 oracle] new2all scan CSV == host tier CSV "
+        f"({os.path.getsize(n2a_csv)} bytes)")
+    for path in (n2a_csv, n2a_files["host_csv"], n2a_files["queries"]):
+        os.remove(path)
+    for var in ("KMERDB_A2A_PALLAS", "KMERDB_N2A_DEVICE"):
+        os.environ.pop(var)
+    _set_route()
+    return runs
+
+
 def _kernel_fns(gram) -> dict:
     return {"gram_pk_tri": gram.gram_u32_pk_tri,
             "tril_tiles": gram.tril_tiles,
@@ -544,7 +782,10 @@ def _kernel_fns(gram) -> dict:
             "filter_colsum": gram.filter_colsum,
             "gather_tiles": gram.gather_tiles,
             "matmul_u32_acc": gram.matmul_u32_acc,
-            "cross_u32_pk": gram.cross_u32_pk}
+            "cross_u32_pk": gram.cross_u32_pk,
+            "gram_u32_tri": gram.gram_u32_tri,
+            "gram_u32": gram.gram_u32,
+            "matmul_u32": gram.matmul_u32}
 
 
 def _launches(gram) -> dict:
@@ -588,7 +829,7 @@ def run(workdir: str) -> list:
     def say(line: str) -> None:
         print(line, flush=True)
 
-    sys.modules["jax"] = None             # any JAX import below fails loudly
+    refuse_jax_imports()
     t = time.perf_counter()
     import torch
     _check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -603,8 +844,9 @@ def run(workdir: str) -> list:
     say(smi[0] if smi else "nvidia-smi gave no output")
 
     from kmerdb_tpu_torch.cli.main import main as cli
-    from kmerdb_tpu_torch.host import bench_corpus, dbfile
+    from kmerdb_tpu_torch.io import dbfile
     from kmerdb_tpu_torch.ops import _cuda, device_a2a, gram, intersect
+    from kmerdb_tpu_torch.utils import bench_corpus
 
     t = time.perf_counter()
     _cuda.lib()
@@ -689,8 +931,7 @@ def run(workdir: str) -> list:
     _check(filecmp.cmp(dev_csv, host_csv, shallow=False),
            "device CSV differs from the host tier's CSV")
     csv_bytes = os.path.getsize(dev_csv)
-    os.remove(dev_csv)
-    os.remove(host_csv)
+    os.remove(dev_csv)          # host_csv and C_host stay for phase 17
     say(f"[6 oracle] {time.perf_counter() - t:.2f} s; device C == host C++ "
         f"tier C ({db.n_samples}^2 cells, host tier {t_host:.2f} s); CSV "
         f"byte-equal ({csv_bytes} bytes)")
@@ -814,9 +1055,8 @@ def run(workdir: str) -> list:
             f"bounds {bounds}"
             + (f", sparse_pull {st['sparse_pull']}" if bounds else ""))
     say(f"[10b oracle] {time.perf_counter() - t:.2f} s")
-    del C_host
 
-    from kmerdb_tpu_torch.host import loader, params
+    from kmerdb_tpu_torch.cli import loader, params
     from kmerdb_tpu_torch.ops import fused
     with open(scale_list) as f:
         paths = [ln for ln in f.read().split() if ln]
@@ -841,14 +1081,31 @@ def run(workdir: str) -> list:
                          paths, say)
     parts = parts_phases(torch, cli, gram, fused, workdir, paths, say)
 
+    t = time.perf_counter()
+    scres = check_scan_kernels(torch, gram, intersect, db, rng)
+    torch.cuda.empty_cache()
+    say(f"[16 kernels] {time.perf_counter() - t:.2f} s")
+    for name, cases in scres.items():
+        for c in cases:
+            say(f"[16 kernel] {name} == plain: {_fmt(c)}")
+    scan = scan_phases(torch, cli, gram, intersect, db, db_path, C_host,
+                       host_csv, n2a["files"], workdir, say)
+    del C_host
+    os.remove(host_csv)
+
     def entry(name, source, replaces, res, launches, timed=0):
-        """res[timed] gives the times: the case nearest the route's own."""
+        """res[timed] gives the times and the bound: the case nearest the
+        route's own."""
+        c = res[timed]
+        bound_ms, bound_by = _bound(c["ops"], c["bytes"])
         return {"name": name, "route": "cuda",
                 "source": f"kmerdb_tpu_torch/csrc/{source}",
                 "replaces": f"kmerdb_tpu/ops/pallas_gram.py:{replaces}",
                 "launches": launches[name],
-                "max_abs_err": max(c["max_abs_err"] for c in res),
-                "ms": res[timed]["ms"], "plain_ms": res[timed]["plain_ms"]}
+                "max_abs_err": max(r["max_abs_err"] for r in res),
+                "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": c.get("library_ms")}
 
     dense = runs["streamed", "dense"]["launches"]
     sparse = runs["streamed", "sparse"]["launches"]
@@ -869,6 +1126,12 @@ def run(workdir: str) -> list:
               n2a["1", "dense"]["launches"]),
         entry("cross_u32_pk", "cross_pk.cu", 727, cres,
               parts["a grid"]["launches"]),
+        entry("gram_u32_tri", "gram_u32.cu", 119, scres["gram_u32_tri"],
+              scan["tri"]["launches"]),
+        entry("gram_u32", "gram_u32.cu", 83, scres["gram_u32"],
+              scan["full"]["launches"]),
+        entry("matmul_u32", "matmul_acc.cu", 631, scres["matmul_u32"],
+              scan["n2a"]["launches"]),
     ]
 
 

@@ -24,10 +24,11 @@ import os
 
 import numpy as np
 
-from ..host import csvio, dbfile, filters, log, params
-from ..host import parts as host_parts
-from ..host import sampler as host_sampler
+from ..io import dbfile
 from ..ops import fused, intersect
+from ..utils import csvio, filters, log
+from ..utils import sampler as sampler_mod
+from .params import UsageError
 
 
 def _grid_tier(part_fns, part_sizes, sample_counts, cache_budget):
@@ -50,7 +51,7 @@ def _grid_tier(part_fns, part_sizes, sample_counts, cache_budget):
 
 def run_all2all_parts(p):
     if len(p.files) != 2:
-        raise params.UsageError(p.mode)
+        raise UsageError(p.mode)
     list_fn, out_fn = p.files
     with open(list_fn) as f:
         part_fns = f.read().split()
@@ -74,7 +75,7 @@ def run_all2all_parts(p):
 
     sampler = None
     if p.sampling_size != 0:
-        sampler = host_sampler.Sampler(
+        sampler = sampler_mod.Sampler(
             len(sample_names), p.sampling_size,
             "best" if p.sampling_criterion else "random")
     idx_shifts = np.concatenate([[0], np.cumsum(part_sizes)]).astype(int)
@@ -138,17 +139,17 @@ def run_all2all_parts(p):
                     p.metric_filters, p.kmer_filter, row_counts,
                     db_col.sample_kmer_counts, kmer_len)
                 if sampler is not None:
-                    host_parts._cross_to_sampler(
+                    _cross_to_sampler(
                         sampler, X, filt, p, db_row, db_col,
                         idx_shifts[i_row], idx_shifts[i_col], kmer_len)
                 else:
-                    cells[i_col] = host_parts._filtered_pairs_matrix(X, filt)
+                    cells[i_col] = _filtered_pairs_matrix(X, filt)
 
             C = cell(i_row, db_row)
             filt = filters.CombinedFilter(p.metric_filters, p.kmer_filter,
                                           row_counts, row_counts, kmer_len)
             if sampler is not None:
-                host_parts._diag_to_sampler(sampler, C, filt, p, db_row,
+                _diag_to_sampler(sampler, C, filt, p, db_row,
                                             idx_shifts[i_row], kmer_len)
                 continue
             diag = []
@@ -182,3 +183,38 @@ def run_all2all_parts(p):
                     sample_names[g], sample_counts[g], sampler.row_pairs(g)))
                 prog.step()
         prog.done()
+
+
+def _filtered_pairs_matrix(X, filt):
+    """Per-row survivor (cols, values) array pairs (ascending cols)."""
+    out = []
+    for r in range(X.shape[0]):
+        row = X[r]
+        keep = filt.mask_row(row, r)
+        nz = np.flatnonzero(row * keep)
+        out.append((nz, row[nz]))
+    return out
+
+
+def _cross_to_sampler(sampler, X, filt, p, db_row, db_col, row_shift,
+                      col_shift, kmer_len):
+    crit = p.sampling_criterion or (lambda c, a, b, k: 1.0)
+    rc = db_row.sample_kmer_counts
+    cc = db_col.sample_kmer_counts
+    for r in range(X.shape[0]):
+        row = X[r]
+        nz = np.flatnonzero(row)
+        if nz.size == 0:
+            continue
+        keep = filt.mask_row(row[nz], r, nz)
+        for j in nz[keep]:
+            v = int(row[j])
+            score = float(crit(v, int(rc[r]), int(cc[j]), kmer_len))
+            sampler.add(row_shift + r, col_shift + int(j), v, score)
+            sampler.add(col_shift + int(j), row_shift + r, v, score)
+
+
+def _diag_to_sampler(sampler, C, filt, p, db_row, shift, kmer_len):
+    sampler_mod.feed_lower_triangle(
+        sampler, C, filt, p.sampling_criterion, db_row.sample_kmer_counts,
+        kmer_len, shift=shift)

@@ -178,3 +178,16 @@ extern "C" int kmerdb_matmul_acc(const void* h, int h_bytes, const void* b, void
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The fresh product C = H @ B of new2all's scan tier (matmul_u32 of
+// kmerdb_tpu/ops/pallas_gram.py, _matmul_tile_kernel): C zeroed on `stream`,
+// then the accumulating kernel above.  Returns the first cudaError_t.
+extern "C" int kmerdb_matmul_u32(const void* h, int h_bytes, const void* b, void* c,
+                                 int64_t q_pad, int64_t p_pad, int64_t s_pad, int n_limbs,
+                                 void* stream) {
+  const cudaError_t err =
+      cudaMemsetAsync(c, 0, static_cast<size_t>(q_pad) * s_pad * sizeof(uint32_t),
+                      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return kmerdb_matmul_acc(h, h_bytes, b, c, q_pad, p_pad, s_pad, n_limbs, stream);
+}

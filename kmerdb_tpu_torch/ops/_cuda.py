@@ -8,8 +8,8 @@ flags, so an edit rebuilds it, and lives under ``kmerdb_tpu_torch/build/``
 and the stream as PyTorch's current CUDA stream.
 
 Nothing is built or loaded when this module is imported: the first call
-of ``lib()`` does both.  The build half mirrors kmerdb_tpu/utils/native.py
-(compile on first use), with nvcc in place of g++.
+of ``lib()`` does both.  The C++ host runtime (utils/native.py) is built
+the same way, with g++ in place of nvcc.
 """
 
 import ctypes
@@ -23,7 +23,7 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = CSRC.parent / "build"
 SOURCES = ("gram_pk_tri.cu", "gram_pk_rows.cu", "cross_pk.cu", "tril_tiles.cu",
-           "cast_rows.cu", "filter_colsum.cu", "matmul_acc.cu")
+           "cast_rows.cu", "filter_colsum.cu", "matmul_acc.cu", "gram_u32.cu")
 HEADERS = ("gram_pk.cuh", "tri.cuh")
 #: sm_90a: the Hopper target (plain sm_90 refuses wgmma, which later
 #: kernels will use); -Xptxas -v logs registers, shared memory and spills
@@ -113,6 +113,8 @@ def lib() -> ctypes.CDLL:
             ("kmerdb_cross_pk",
              [vp, vp, vp, vp, i64, i64, i64, i32, i32, vp]),
             ("kmerdb_matmul_acc", [vp, i32, vp, vp, i64, i64, i64, i32, vp]),
+            ("kmerdb_matmul_u32", [vp, i32, vp, vp, i64, i64, i64, i32, vp]),
+            ("kmerdb_gram_u32", [vp, vp, vp, i64, i64, i32, i32, vp]),
             ("kmerdb_tril_tiles", [vp, vp, i64, i32, vp]),
             ("kmerdb_gather_tiles", [vp, vp, vp, vp, i64, i64, i32, vp]),
             ("kmerdb_cast_rows", [vp, vp, i64, vp]),

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from .. import _torchinit
-from ..host import KmerPatternDb, native
+from ..models.database import KmerPatternDb
+from ..utils import native
 from . import gram
 from .geom import KT, LIMB_BITS, TILE
 

@@ -28,7 +28,8 @@ import time
 
 import numpy as np
 
-from ..host import costcal, native
+from ..utils import native
+from . import costcal
 from .geom import KT, TILE
 from .intersect import _card, _csr, _fill_bits, _round_up
 

@@ -1,8 +1,9 @@
 """The port's kernels: the packed Gram over the triangle (all2all's matrix
 route), a row stripe (its streamed route) or the rectangle of two operands
 (db2db and the all2all-parts grid), the accumulating query contraction of
-new2all, the triangle and survivor-tile pulls, and the stripe passes
-(uint16 narrowing, survivor counts of a count filter).
+new2all, the unpacked Gram and query contraction of the scan tier
+(KMERDB_A2A_PALLAS=0), the triangle and survivor-tile pulls, and the
+stripe passes (uint16 narrowing, survivor counts of a count filter).
 
 Each kernel has a wrapper, which checks its operands, launches the CUDA
 kernel for CUDA tensors (or raises) and counts its launches, and a plain
@@ -18,7 +19,8 @@ packages identical operands (``from_jax_layout``):
 * ``Up``, ``Vp`` two packed operands uint8[P/8, S1] and uint8[P/8, S2]
   over the same patterns (cross_u32_pk);
 * ``H`` uint8 or uint32[Q, P] hit counts and ``B`` int8 0/1 [P, S]
-  unpacked incidence (matmul_u32_acc);
+  unpacked incidence (matmul_u32_acc, matmul_u32; gram_u32 and
+  gram_u32_tri take ``B`` with uint32 weights ``w`` [P], unpermuted);
 * ``C`` uint32[S, S] counts, a uint32[R, S] row stripe of them, or a
   uint32[S1, S2] or [Q, S] rectangle, in int32 storage.  torch has no
   uint32 add or shift; int32 storage wraps mod 2^32 with the same bits,
@@ -320,26 +322,50 @@ def cross_u32_pk_plain(Up: torch.Tensor, Vp: torch.Tensor, w: torch.Tensor,
     return C
 
 
-#: 8-bit limbs of the hit counts in matmul_u32_acc
+#: 8-bit limbs of the hit counts in matmul_u32_acc and matmul_u32, and of
+#: the weights in gram_u32 and gram_u32_tri (the JAX package's bf16 family)
 H_LIMB_BITS = 8
+#: output block edge of the unpacked kernels: gram_u32_tri computes the
+#: blocks on or below the diagonal of this grid
+BLOCK = 128
 
 
 def _check_matmul(H, B, C, n_limbs) -> None:
+    """Operands of matmul_u32_acc, or of matmul_u32 when C is None."""
     _require(H.dtype in (torch.uint8, torch.int32) and H.dim() == 2,
              "H must be uint8 or int32 (uint32 bits) [Q, P]")
     _require(B.dtype == torch.int8 and B.dim() == 2
              and B.shape[0] == H.shape[1],
              "B must be int8[P, S] with P = H.shape[1]")
-    _require(C.dtype == torch.int32
-             and tuple(C.shape) == (H.shape[0], B.shape[1]),
+    _require(C is None or (C.dtype == torch.int32
+                           and tuple(C.shape) == (H.shape[0], B.shape[1])),
              "C must be int32[Q, S] with Q = H.shape[0], S = B.shape[1]")
-    _require(all(t.is_contiguous() for t in (H, B, C)),
+    _require(all(t.is_contiguous() for t in (H, B, C) if t is not None),
              "operands must be contiguous")
     _require(all(n % 128 == 0 for n in (*H.shape, B.shape[1])),
              "Q, P and S must be multiples of 128")
     _require(n_limbs == 1 if H.dtype == torch.uint8
              else 1 <= n_limbs <= 32 // H_LIMB_BITS,
              "n_limbs must be 1 for uint8 H and lie in 1..4 for int32 H")
+
+
+def _limb_matmul_plain(h: torch.Tensor, B: torch.Tensor,
+                       n_limbs: int) -> torch.Tensor:
+    """sum over the 8-bit limbs l of h of (h_l @ B) << 8l, mod 2^32, as
+    int64: h int64 [M, P] in [0, 2^32), B int8 [P, N] read as unsigned
+    bytes, as the kernels read it.  Per K block of 4,096 patterns and limb
+    the partial is at most 255 * 255 * 4096 < 2^53."""
+    mm_dtype = _mm_dtype(B.device)
+    acc = torch.zeros((h.shape[0], B.shape[1]), dtype=torch.int64,
+                      device=B.device)
+    step = 4096
+    for k0 in range(0, h.shape[1], step):
+        bk = B[k0:k0 + step].view(torch.uint8).to(mm_dtype)
+        for l in range(n_limbs):
+            hl = (h[:, k0:k0 + step] >> (H_LIMB_BITS * l)) & 0xFF
+            part = (hl.to(mm_dtype) @ bk).to(torch.int64)
+            acc = (acc + (part << (H_LIMB_BITS * l))) & 0xFFFFFFFF
+    return acc
 
 
 def matmul_u32_acc(H: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *,
@@ -367,24 +393,136 @@ matmul_u32_acc.launches = 0
 
 def matmul_u32_acc_plain(H: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                          *, n_limbs: int) -> torch.Tensor:
-    """Plain PyTorch version of matmul_u32_acc, on any device.  Per K
-    block of 4,096 patterns and limb the partial is at most 255 * 4096."""
+    """Plain PyTorch version of matmul_u32_acc, on any device."""
     _check_matmul(H, B, C, n_limbs)
-    mm_dtype = _mm_dtype(C.device)
     # widen before masking: uint32 counts >= 2^31 are negative in int32
-    h = H.to(torch.int64) & 0xFFFFFFFF
-    acc = torch.zeros(C.shape, dtype=torch.int64, device=C.device)
-    step = 4096
-    for k0 in range(0, H.shape[1], step):
-        # the kernel reads B's bytes unsigned
-        bk = B[k0:k0 + step].view(torch.uint8).to(mm_dtype)
-        for l in range(n_limbs):
-            hl = (h[:, k0:k0 + step] >> (H_LIMB_BITS * l)) & 0xFF
-            part = (hl.to(mm_dtype) @ bk).to(torch.int64)
-            acc = (acc + (part << (H_LIMB_BITS * l))) & 0xFFFFFFFF
+    acc = _limb_matmul_plain(H.to(torch.int64) & 0xFFFFFFFF, B, n_limbs)
     old = C.to(torch.int64) & 0xFFFFFFFF
     C.copy_(_to_int32((old + acc) & 0xFFFFFFFF))
     return C
+
+
+def matmul_u32(H: torch.Tensor, B: torch.Tensor, *,
+               n_limbs: int) -> torch.Tensor:
+    """Fresh C = H @ B int32[Q, S], exact mod 2^32, with H and B as in
+    matmul_u32_acc: the chunk product of new2all's scan tier.
+
+    Replaces kmerdb_tpu/ops/pallas_gram.py matmul_u32 (_matmul_tile_kernel).
+    CUDA tensors go to csrc/matmul_acc.cu, whose body zeroes C first; CPU
+    tensors to matmul_u32_plain."""
+    _check_matmul(H, B, None, n_limbs)
+    if _kernel_device(H, B) == "cpu":
+        return matmul_u32_plain(H, B, n_limbs=n_limbs)
+    _require(all(t.data_ptr() % 16 == 0 for t in (H, B)),
+             "H and B must be 16-byte aligned")
+    C = torch.empty((H.shape[0], B.shape[1]), dtype=torch.int32,
+                    device=B.device)
+    _cuda_call(_cuda.lib().kmerdb_matmul_u32, H.data_ptr(), H.element_size(),
+               B.data_ptr(), C.data_ptr(), H.shape[0], H.shape[1], B.shape[1],
+               n_limbs, device=C.device)
+    matmul_u32.launches += 1
+    return C
+
+
+matmul_u32.launches = 0
+
+
+def matmul_u32_plain(H: torch.Tensor, B: torch.Tensor, *,
+                     n_limbs: int) -> torch.Tensor:
+    """Plain PyTorch version of matmul_u32, on any device."""
+    _check_matmul(H, B, None, n_limbs)
+    return _to_int32(_limb_matmul_plain(H.to(torch.int64) & 0xFFFFFFFF, B,
+                                        n_limbs))
+
+
+def _check_unpacked_gram(B, w, n_limbs) -> None:
+    _require(B.dtype == torch.int8 and B.dim() == 2,
+             "B must be int8 0/1 [P, S]")
+    _require(w.dtype == torch.int32 and w.dim() == 1
+             and w.numel() == B.shape[0],
+             "w must be int32 (uint32 bits) [P] with P = B.shape[0]")
+    _require(B.is_contiguous() and w.is_contiguous(),
+             "operands must be contiguous")
+    _require(B.shape[0] % 128 == 0 and B.shape[1] % BLOCK == 0,
+             "P and S must be multiples of 128")
+    _require(1 <= n_limbs <= 32 // H_LIMB_BITS, "n_limbs must lie in 1..4")
+
+
+def _launch_gram_u32(B, w, n_limbs: int, triangle: bool) -> torch.Tensor:
+    _require(B.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+             "B and w must be 16-byte aligned")
+    S = B.shape[1]
+    C = torch.empty((S, S), dtype=torch.int32, device=B.device)
+    _cuda_call(_cuda.lib().kmerdb_gram_u32, B.data_ptr(), w.data_ptr(),
+               C.data_ptr(), B.shape[0], S, n_limbs, int(triangle),
+               device=C.device)
+    return C
+
+
+def gram_u32(B: torch.Tensor, w: torch.Tensor, *,
+             n_limbs: int) -> torch.Tensor:
+    """Fresh C = B^T diag(w) B int32[S, S], exact mod 2^32, over the low
+    8 * n_limbs bits of each weight: B int8 0/1 [P, S], w uint32 bits in
+    int32 storage [P] (0 on pad rows).
+
+    Replaces kmerdb_tpu/ops/pallas_gram.py gram_u32 (_gram_tile_kernel, the
+    full grid, 8-bit limbs).  CUDA tensors go to csrc/gram_u32.cu; CPU
+    tensors to gram_u32_plain."""
+    _check_unpacked_gram(B, w, n_limbs)
+    if _kernel_device(B, w) == "cpu":
+        return gram_u32_plain(B, w, n_limbs=n_limbs)
+    C = _launch_gram_u32(B, w, n_limbs, triangle=False)
+    gram_u32.launches += 1
+    return C
+
+
+gram_u32.launches = 0
+
+
+def gram_u32_tri(B: torch.Tensor, w: torch.Tensor, *,
+                 n_limbs: int) -> torch.Tensor:
+    """gram_u32 on the BLOCK x BLOCK tiles with tile row >= tile column
+    only; the strictly-upper tiles are zero (uninitialised in the JAX
+    package).  Diagonal tiles are computed in full, so
+    tril(C) + tril(C, -1).T is the whole Gram.
+
+    Replaces kmerdb_tpu/ops/pallas_gram.py gram_u32_tri
+    (_gram_tile_tri_kernel).  CUDA tensors go to csrc/gram_u32.cu; CPU
+    tensors to gram_u32_tri_plain."""
+    _check_unpacked_gram(B, w, n_limbs)
+    if _kernel_device(B, w) == "cpu":
+        return gram_u32_tri_plain(B, w, n_limbs=n_limbs)
+    C = _launch_gram_u32(B, w, n_limbs, triangle=True)
+    gram_u32_tri.launches += 1
+    return C
+
+
+gram_u32_tri.launches = 0
+
+
+def _gram_unpacked_plain(B, w, n_limbs) -> torch.Tensor:
+    """B^T diag(w) B mod 2^32 as int64: the limb product of H = B^T diag(w)
+    and B."""
+    h = B.view(torch.uint8).T.to(torch.int64) \
+        * (w.to(torch.int64) & 0xFFFFFFFF)
+    return _limb_matmul_plain(h, B, n_limbs)
+
+
+def gram_u32_plain(B: torch.Tensor, w: torch.Tensor, *,
+                   n_limbs: int) -> torch.Tensor:
+    """Plain PyTorch version of gram_u32, on any device."""
+    _check_unpacked_gram(B, w, n_limbs)
+    return _to_int32(_gram_unpacked_plain(B, w, n_limbs))
+
+
+def gram_u32_tri_plain(B: torch.Tensor, w: torch.Tensor, *,
+                       n_limbs: int) -> torch.Tensor:
+    """Plain PyTorch version of gram_u32_tri, on any device."""
+    _check_unpacked_gram(B, w, n_limbs)
+    band = torch.arange(B.shape[1], device=B.device) // BLOCK
+    lower = band[:, None] >= band[None, :]
+    return _to_int32(torch.where(lower, _gram_unpacked_plain(B, w, n_limbs),
+                                 0))
 
 
 def _narrow(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

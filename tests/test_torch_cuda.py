@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from kmerdb_tpu.models.database import KmerPatternDb
-from kmerdb_tpu.utils import native
+from kmerdb_tpu_torch.models.database import KmerPatternDb
 from kmerdb_tpu_torch.ops import device_a2a, gram
+from kmerdb_tpu_torch.utils import native
 
 pytestmark = pytest.mark.cuda
 
@@ -238,7 +238,7 @@ def test_cross_kernel_matches_plain(card, S1, S2, rows, n_limbs, kt):
 
 
 def _built_db(rng, n, pool, core):
-    from kmerdb_tpu.models import builder
+    from kmerdb_tpu_torch.models import builder
     samples = [(f"s{i}", np.unique(np.concatenate([core, rng.choice(
         pool, size=int(rng.integers(100, 600)), replace=False)])))
         for i in range(n)]
@@ -290,3 +290,72 @@ def test_query_and_cross_tiers_match_host_tiers(card, monkeypatch):
         for j in range(i):
             np.testing.assert_array_equal(grid[i, j], d2d[i, j])
             np.testing.assert_array_equal(streamed[i][j], d2d[i, j])
+
+
+@pytest.mark.parametrize("P,S,n_limbs,triangle", [
+    (512, 384, 1, True), (384, 256, 4, False), (1024, 640, 3, True),
+    (256, 128, 2, False)])
+def test_gram_u32_kernels_match_plain(card, P, S, n_limbs, triangle):
+    """Weights over every bit with 255, 2^8 and 2^31 among them: the limbs
+    above n_limbs are dropped, limb bytes reach 255 (the unsigned dp4a)."""
+    rng = np.random.default_rng(P + S + n_limbs)
+    B = torch.from_numpy((rng.random((P, S)) < 0.3).astype(np.int8)).to(card)
+    w = _u32(rng, P)
+    w[:3] = (255, 256, 1 << 31)
+    w = torch.from_numpy(w.view(np.int32)).to(card)
+    kern = gram.gram_u32_tri if triangle else gram.gram_u32
+    plain = gram.gram_u32_tri_plain if triangle else gram.gram_u32_plain
+    n = kern.launches
+    got = kern(B, w, n_limbs=n_limbs)
+    torch.cuda.synchronize()
+    assert kern.launches == n + 1
+    assert torch.equal(got, plain(B, w, n_limbs=n_limbs)) and bool(got.any())
+
+
+@pytest.mark.parametrize("Q,P,S,wide,n_limbs", [
+    (128, 512, 256, False, 1), (256, 384, 384, True, 4),
+    (128, 256, 128, True, 2)])
+def test_matmul_u32_kernel_matches_plain(card, Q, P, S, wide, n_limbs):
+    """uint8 H over every byte; uint32 H over every bit (4 limbs: 2^31 and
+    above; 2 limbs: the bits above dropped)."""
+    rng = np.random.default_rng(Q + P + S + n_limbs)
+    B = torch.from_numpy((rng.random((P, S)) < 0.3).astype(np.int8)).to(card)
+    if wide:
+        H = _u32(rng, (Q, P)).view(np.int32)
+    else:
+        H = rng.integers(0, 256, size=(Q, P), dtype=np.uint8)
+        H[0, :256] = np.arange(256)
+    H = torch.from_numpy(H).to(card)
+    n = gram.matmul_u32.launches
+    got = gram.matmul_u32(H, B, n_limbs=n_limbs)
+    torch.cuda.synchronize()
+    assert gram.matmul_u32.launches == n + 1
+    assert torch.equal(got, gram.matmul_u32_plain(H, B, n_limbs=n_limbs))
+
+
+@pytest.mark.skipif(not native.available, reason="no native host runtime")
+def test_scan_tiers_match_host_tiers(card, monkeypatch):
+    """all2all's scan on both grids over several chunks, and new2all's scan
+    with 2-limb hit counts, against the host tiers."""
+    from kmerdb_tpu_torch.ops import intersect
+    monkeypatch.setenv("KMERDB_A2A_PALLAS", "0")
+    monkeypatch.setattr(intersect, "_CHUNK_E", 20_000)
+    db, host = _random_db()
+    for triangle in (True, False):
+        np.testing.assert_array_equal(
+            intersect._a2a_scan(db, triangle=triangle), host)
+    assert intersect.scan_stats["chunks"] > 2
+    assert intersect.scan_stats["gram_s"] > 0
+
+    rng = np.random.default_rng(22)
+    pool = rng.integers(0, 1 << 40, size=5_000, dtype=np.uint64)
+    core = np.unique(pool[:600])
+    qdb = _built_db(rng, 150, pool[600:], core)
+    queries = [np.unique(rng.choice(pool, size=int(rng.integers(50, 4_000)),
+                                    replace=False)) for _ in range(130)]
+    want = intersect.many2all_counts(qdb, queries, use_device=False)
+    n = gram.matmul_u32.launches
+    got = intersect.many2all_counts(qdb, queries, use_device=True)
+    assert gram.matmul_u32.launches > n
+    assert intersect.n2a_stats["n_limbs"] == 2
+    np.testing.assert_array_equal(got, want)

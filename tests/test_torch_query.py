@@ -169,6 +169,7 @@ def test_many2all_device_tier_matches_jax_tiers(name, monkeypatch, on_cpu,
     if name == "chunked-130":
         # a CSR element budget of 64 cuts the patterns into many chunks
         monkeypatch.setattr(jax_intersect, "_CHUNK_E", 64)
+        monkeypatch.setattr(intersect, "_CHUNK_E", 64)
     H_all, B_all, got_limbs = intersect.m2a_prepare(db, queries)
     assert got_limbs == n_limbs
     assert H_all.dtype == (np.uint8 if n_limbs == 1 else np.uint32)

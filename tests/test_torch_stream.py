@@ -26,6 +26,7 @@ from kmerdb_tpu_torch import _torchinit
 from kmerdb_tpu_torch.cli import consoles
 from kmerdb_tpu_torch.cli.main import main as port_main
 from kmerdb_tpu_torch.ops import device_a2a, gram, intersect
+from kmerdb_tpu_torch.utils import native as port_native
 
 needs_native = pytest.mark.skipif(not native.available,
                                   reason="no native host runtime")
@@ -391,7 +392,7 @@ def test_cli_streamed_matches_jax_and_matrix_route(small_db, opts,
 def test_stream_gate(env, S, cuda, have_native, streams, monkeypatch):
     monkeypatch.setenv("KMERDB_A2A_STREAM", env)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
-    monkeypatch.setattr(native, "available", have_native)
+    monkeypatch.setattr(port_native, "available", have_native)
     db = KmerPatternDb(kmer_length=18,
                        sample_names=[f"s{i}" for i in range(S)])
     assert consoles._stream_rows(db) == streams
