@@ -53,8 +53,12 @@ one per case), each with its seconds:
     each part built through the CLI: (a) the device grid, (b) the
     streamed device grid, (c) per cell on the device tiers, each with its
     launches;
-15. the oracle: the CSVs of (a), (b) and (c) equal the host tiers' byte
-    for byte;
+15. the oracle: the CSVs of (a), (b) and (c) equal, byte for byte, the
+    CSV that ``all2all-sp`` of the whole database writes on the host C++
+    tier.  The two modes write the same rows by construction (the CPU
+    tests hold them to each other), and the whole-database scatter takes
+    a quarter of the time of all2all-parts' own host tiers, which this
+    script ran until the mesh phases needed the time;
 16. the scan tier's kernels (KMERDB_A2A_PALLAS=0) against their plain
     versions, exactly, at its shapes on the 4,096-sample database: the
     first chunk of ``_scan_chunks`` (its incidence, P_pad, S_pad 4096),
@@ -70,7 +74,32 @@ one per case), each with its seconds:
 18. ``new2all`` of phase 12's 1,100 queries on the scan tier through the
     CLI (KMERDB_N2A_DEVICE=1 KMERDB_A2A_PALLAS=0), dense: one
     ``matmul_u32`` launch a chunk, the CSV byte-equal to phase 13's host
-    tier CSV.
+    tier CSV;
+19. (printed after phase 8, on its stripes) ``bounds_zero_rows`` against
+    its plain version, exactly, at the streamed route's stripe (1,536 x
+    20,480): uint16 and uint32 output, the bounds ``lo = 1`` and a
+    selective ``-min num-kmers`` window on the database's counts, and a
+    window that straddles 2^31 on random cells;
+20. the device mesh.  The machine has one card, so the script builds a
+    mesh of 4 slots on it (``_torchinit.devices`` replaced; each slot has a
+    CUDA stream of its own) and runs the CLI with ``-mesh 4`` on the
+    20,480-sample database, dense and ``-sparse -min num-kmers:27000``:
+    the default route streams through ``all2all_rows_sharded``
+    (``gram_pk_rows`` once a round, slot and group, then ``cast_rows`` or
+    ``bounds_zero_rows`` once a round and slot; the last round's stripes
+    are clamped backwards).  Both CSVs byte-equal to phase 9's; each call
+    made twice with equal bytes, which a missing stream dependency would
+    break;
+21. ``-mesh 4`` on the 4,096-sample database, each call made twice with
+    equal bytes: ``all2all`` (the matrix through
+    ``all2all_counts_sharded``, CSV == phase 6's host tier CSV),
+    ``all2all-sp`` (CSV == phase 15's, the host tier's of the same
+    command), ``all2all-sp -sample-rows 3`` on the first 1,024-sample
+    part (its sampler walks every cell in Python; CSV == the host tier's
+    of the same command), ``new2all`` of phase 12's queries
+    (``many2all_counts_sharded``, CSV == phase 13's host tier CSV) and
+    ``all2all-parts`` over phase 14's parts (``db2db_counts_sharded`` and
+    ``all2all_counts_sharded``, CSV == phase 15's reference).
 
 Each kernel's record holds its time, its plain version's, the time of a
 PyTorch call that computes the same function where one exists
@@ -111,6 +140,8 @@ N_QUERIES = 1100
 PART_SIZE = 1024
 #: phase 16: matmul_u32's query rows, new2all's flush
 SCAN_Q_PAD = 512
+#: phases 20 and 21: slots of the mesh, all on the one card
+MESH_SLOTS = 4
 #: an H100 SXM's dense int8 tensor-core peak and memory rate (NVIDIA's data
 #: sheet, at its 700 W limit): the bounds of every kernel record
 INT8_OPS_PER_S = 1979e12
@@ -257,7 +288,8 @@ def check_kernels(torch, gram, device_a2a, db, rng) -> dict:
 def check_stripe_kernels(torch, gram, device_a2a, db, rng) -> dict:
     """Phase 8: the streamed route's kernels == plain versions at its
     shapes: the default stripe of the large database, its first light
-    group, a stripe other than the first."""
+    group, a stripe other than the first.  Also returns the two stripes
+    (random cells; the group's real counts) for phase 19."""
     dev = torch.device("cuda")
     T = gram.PULL_TILE
     kt_check = 4 * device_a2a.KT           # a K block other than the default
@@ -362,6 +394,45 @@ def check_stripe_kernels(torch, gram, device_a2a, db, rng) -> dict:
             tiles=int(i_tab.numel()), max_abs_err=err, ms=ms,
             plain_ms=plain_ms, ops=0.0,
             bytes=gk.numel() * (4 + gk.element_size()) + 8 * i_tab.numel()))
+    return out, Ck, Cr
+
+
+def check_bounds_zero(torch, gram, C_random, C_counts) -> list:
+    """Phase 19: bounds_zero_rows == plain on the streamed route's stripe,
+    uint16 and uint32 output: the CLI's lo = 1 and a selective window on
+    the group's counts, a window across 2^31 on random cells.  The first
+    case (counts, lo = 1, uint16) is the route's own."""
+    top = int(_u32(torch, C_counts).max())
+    out = []
+    for name, C, lo, hi in (("lo=1", C_counts, 1, 0xFFFFFFFF),
+                            ("selective", C_counts, top * 9 // 10, 0xFFFFFFFF),
+                            ("across 2^31", C_random, 1 << 30, 3 << 30)):
+        b = gram.bias_bounds(lo, hi)
+        for dtype in (torch.int16, torch.int32):
+            zk = gram.bounds_zero_rows(C, b, dtype)
+            zp = gram.bounds_zero_rows_plain(C, b, dtype)
+            torch.cuda.synchronize()
+            mask = 0xFFFF if dtype == torch.int16 else 0xFFFFFFFF
+            err = int(((zk.to(torch.int64) & mask)
+                       - (zp.to(torch.int64) & mask)).abs().max())
+            kept = int(torch.count_nonzero(zk))
+            _check(torch.equal(zk, zp), f"bounds_zero_rows differs from its "
+                   f"plain version ({name}, {dtype}, max_abs_err={err})")
+            # every pair of the corpus shares k-mers: lo = 1 keeps them all
+            _check(0 < kept and (kept < C.numel() or lo == 1),
+                   f"bounds_zero_rows ({name}, {dtype}) kept {kept} of "
+                   f"{C.numel()} cells")
+            del zk, zp
+            ms = _cuda_ms(torch, lambda: gram.bounds_zero_rows(C, b, dtype), 50)
+            plain_ms = _cuda_ms(
+                torch, lambda: gram.bounds_zero_rows_plain(C, b, dtype), 10)
+            moved = C.numel() * (4 + (2 if dtype == torch.int16 else 4))
+            out.append(dict(
+                bounds=name, lo=lo, hi=hi,
+                dtype="uint16" if dtype == torch.int16 else "uint32",
+                shape=f"{C.shape[0]}x{C.shape[1]}", kept=kept,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                gb_per_s=moved / ms / 1e6, ops=0.0, bytes=moved))
     return out
 
 
@@ -542,14 +613,14 @@ _PARTS_TIERS = {
     "b streamed grid": {"KMERDB_GRID_DEVICE": "1", "KMERDB_GRID_STREAM": "1"},
     "c per cell": {"KMERDB_GRID_DEVICE": "0", "KMERDB_D2D_DEVICE": "1",
                    "KMERDB_A2A_DEVICE": "1"},
-    "host": {"KMERDB_GRID_DEVICE": "0", "KMERDB_D2D_DEVICE": "0",
-             "KMERDB_A2A_DEVICE": "0"},
 }
 
 
-def parts_phases(torch, cli, gram, fused, workdir, paths, say) -> dict:
+def parts_phases(torch, cli, gram, fused, workdir, paths, db_path,
+                 say) -> dict:
     """Phases 14 and 15: all2all-parts over the corpus in parts, on the
-    device grid, the streamed grid and per cell, against the host tiers."""
+    device grid, the streamed grid and per cell, against all2all-sp of the
+    whole database (db_path) on the host tier."""
     t = time.perf_counter()
     part_dbs = []
     for pi in range(len(paths) // PART_SIZE):
@@ -582,10 +653,7 @@ def parts_phases(torch, cli, gram, fused, workdir, paths, say) -> dict:
         _check(rc == 0, f"all2all-parts ({name}) exited {rc}")
         runs[name] = dict(wall=wall, launches=n)
         want = {"cross_u32_pk"} | (
-            {"cast_rows"} if "grid" in name else
-            {"gram_pk_tri", "tril_tiles"} if name == "c per cell" else set())
-        if name == "host":
-            want = set()
+            {"cast_rows"} if "grid" in name else {"gram_pk_tri", "tril_tiles"})
         _check({k for k, v in n.items() if v} == want,
                f"all2all-parts ({name}) launched {n}, expected {want}")
         shown = {k: n[k] for k in ("cross_u32_pk", "cast_rows", "gram_pk_tri",
@@ -599,13 +667,27 @@ def parts_phases(torch, cli, gram, fused, workdir, paths, say) -> dict:
     for k in _PARTS_KNOBS:
         os.environ.pop(k, None)
 
-    for name in ("a grid", "b streamed grid", "c per cell"):
-        _check(filecmp.cmp(csvs[name], csvs["host"], shallow=False),
-               f"all2all-parts ({name}) CSV differs from the host tiers'")
-        say(f"[15 oracle] all2all-parts ({name}) CSV == host tiers' CSV; "
-            f"{runs[name]['wall']:.3f} s vs host {runs['host']['wall']:.3f} s")
-    for path in (*csvs.values(), *part_dbs):
-        os.remove(path)
+    host_csv = os.path.join(workdir, "sp-host.csv")
+    _set_route(device="0")
+    _reset_launches(gram)
+    t = time.perf_counter()
+    _check(cli(["all2all-sp", db_path, host_csv]) == 0,
+           "all2all-sp on the host tier failed")
+    host_wall = time.perf_counter() - t
+    _check(not any(_launches(gram).values()),
+           f"the host tier of all2all-sp ran the device: {_launches(gram)}")
+    _set_route()
+    for name in _PARTS_TIERS:
+        _check(filecmp.cmp(csvs[name], host_csv, shallow=False),
+               f"all2all-parts ({name}) CSV differs from the host tier's "
+               f"all2all-sp of the whole database")
+        say(f"[15 oracle] all2all-parts ({name}) CSV == the host tier's "
+            f"all2all-sp CSV of the whole database; {runs[name]['wall']:.3f} "
+            f"s vs {host_wall:.3f} s")
+        os.remove(csvs[name])
+    # the parts and the host tier's CSV stay for phase 21
+    runs["files"] = dict(parts_list=parts_list, part_dbs=part_dbs,
+                         host_csv=host_csv)
     return runs
 
 
@@ -766,11 +848,136 @@ def scan_phases(torch, cli, gram, intersect, db, db_path, C_host, host_csv,
            "the scan tier's new2all CSV differs from the host tier's")
     say(f"[18 oracle] new2all scan CSV == host tier CSV "
         f"({os.path.getsize(n2a_csv)} bytes)")
-    for path in (n2a_csv, n2a_files["host_csv"], n2a_files["queries"]):
-        os.remove(path)
+    os.remove(n2a_csv)      # the queries and the host CSV stay for phase 21
     for var in ("KMERDB_A2A_PALLAS", "KMERDB_N2A_DEVICE"):
         os.environ.pop(var)
     _set_route()
+    return runs
+
+
+def mesh_phases(torch, cli, gram, intersect, workdir, say, *, big_path,
+                streamed_csvs, db_path, host_csv, n2a_files,
+                parts_files) -> dict:
+    """Phases 20 and 21: the CLI under ``-mesh`` on a mesh of MESH_SLOTS
+    slots of the one card.  Every call is made twice; both CSVs must equal
+    the reference's bytes (a single-card or host tier CSV of an earlier
+    phase, or the host tier's of the same command), and the launch
+    counters, reset before each call, must show the route's kernels and no
+    other.  Removes the earlier phases' files it was given."""
+    from kmerdb_tpu_torch import _torchinit
+    from kmerdb_tpu_torch.parallel import sharded
+
+    real_devices = _torchinit.devices
+    _torchinit.devices = lambda: [torch.device("cuda", 0)] * MESH_SLOTS
+    _set_route()
+    say(f"[20 mesh] mesh of {MESH_SLOTS} slots on 1 card (cuda:0), a CUDA "
+        f"stream a slot; {torch.cuda.device_count()} card(s) visible")
+    runs = {}
+
+    def twice(key, argv, want_csv, check):
+        """The call `argv` + [out] twice under the mesh; check(n, stats)
+        names what is wrong with the launches, or returns None."""
+        walls = []
+        for rep in (1, 2):
+            out = os.path.join(workdir, f"mesh-{rep}.csv")
+            sharded.last_stats.clear()
+            intersect.scan_stats.clear()
+            _reset_launches(gram)
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            rc = cli([argv[0], "-mesh", str(MESH_SLOTS), *argv[1:], out])
+            walls.append(time.perf_counter() - t)
+            _check(rc == 0, f"{key}: {argv[0]} -mesh {MESH_SLOTS} exited {rc}")
+            n = _launches(gram)
+            stats = dict(sharded.last_stats or intersect.scan_stats)
+            wrong = check(n, stats)
+            _check(wrong is None, f"{key}: {wrong}; launches {n}, {stats}")
+            _check(filecmp.cmp(out, want_csv, shallow=False),
+                   f"{key}: run {rep} under the mesh differs from "
+                   f"{os.path.basename(want_csv)}")
+            size = os.path.getsize(out)
+            os.remove(out)
+        runs[key] = dict(walls=walls, launches=n, stats=stats,
+                         peak_mib=torch.cuda.max_memory_allocated() >> 20)
+        return walls, n, stats, size
+
+    def only(n, *names):
+        return all((v > 0) == (k in names) for k, v in n.items())
+
+    # 20: the streamed route over the mesh at 20,480 samples
+    for form, opts, tail in (
+            ("dense", [], "cast_rows"),
+            ("sparse", ["-sparse", "-min", f"num-kmers:{SPARSE_MIN}"],
+             "bounds_zero_rows")):
+        def check(n, st, tail=tail):
+            per_round = st.get("rounds", 0) * MESH_SLOTS
+            if not only(n, "gram_pk_rows", tail):
+                return "the wrong kernels ran"
+            if n["gram_pk_rows"] != per_round * st["groups"] \
+                    or n[tail] != per_round:
+                return (f"expected {per_round * st['groups']} gram_pk_rows "
+                        f"and {per_round} {tail}")
+            return None
+
+        walls, n, st, size = twice(("streamed", form),
+                                   ["all2all", *opts, big_path],
+                                   streamed_csvs[form], check)
+        kernels_s = sum(st.get(k, 0.0) for k in ("gram_s", "cast_s",
+                                                 "filter_s"))
+        say(f"[20 all2all -mesh {MESH_SLOTS} {form}] {walls[0]:.3f} s and "
+            f"{walls[1]:.3f} s CLI calls, both CSVs == the single-card "
+            f"streamed route's ({size} bytes); launches "
+            f"{ {k: v for k, v in n.items() if v} } in {st['rounds']} rounds "
+            f"of {MESH_SLOTS} stripes x {st['groups']} groups; rounds on the "
+            f"card {st['device_s']:.4f} s = "
+            f"{100 * st['device_s'] / walls[1]:.1f}% of the call, kernel "
+            f"spans summed over the slots {kernels_s:.4f} s (overlap "
+            f"{kernels_s / st['device_s']:.2f}x); peak device memory "
+            f"{runs['streamed', form]['peak_mib']} MiB; " + _fmt(st))
+        os.remove(streamed_csvs[form])
+
+    # 21: the matrix routes over the mesh at 4,096 samples
+    def scan_only(n, st):
+        if not only(n, "gram_u32_tri") or n["gram_u32_tri"] != st["chunks"]:
+            return "expected one gram_u32_tri a chunk and nothing else"
+        return None
+
+    sampled = ["all2all-sp", "-sample-rows", "3", parts_files["part_dbs"][0]]
+    sampled_csv = os.path.join(workdir, "sampled-host.csv")
+    _set_route(device="0")
+    t = time.perf_counter()
+    _check(cli([*sampled, sampled_csv]) == 0,
+           "all2all-sp -sample-rows on the host tier failed")
+    say(f"[21 reference] all2all-sp -sample-rows of {PART_SIZE} samples on "
+        f"the host tier: {time.perf_counter() - t:.3f} s")
+    _set_route()
+    for key, argv, want, check in (
+            ("all2all", ["all2all", db_path], host_csv, scan_only),
+            ("all2all-sp", ["all2all-sp", db_path], parts_files["host_csv"],
+             scan_only),
+            ("all2all-sp -sample-rows", sampled, sampled_csv, scan_only),
+            ("new2all", ["new2all", db_path, n2a_files["queries"]],
+             n2a_files["host_csv"],
+             lambda n, st: None if only(n, "matmul_u32_acc")
+             and n["matmul_u32_acc"] % MESH_SLOTS == 0
+             else "expected matmul_u32_acc once a chunk and slot"),
+            ("all2all-parts", ["all2all-parts", parts_files["parts_list"]],
+             parts_files["host_csv"],
+             lambda n, st: None if only(n, "gram_u32_tri", "cross_u32_pk")
+             else "expected gram_u32_tri and cross_u32_pk only")):
+        walls, n, st, size = twice(key, argv, want, check)
+        say(f"[21 {key} -mesh {MESH_SLOTS}] {walls[0]:.3f} s and "
+            f"{walls[1]:.3f} s CLI calls, both CSVs == the host tier's "
+            f"({size} bytes); launches "
+            f"{ {k: v for k, v in n.items() if v} }, peak device memory "
+            f"{runs[key]['peak_mib']} MiB"
+            + ("; scan_stats " + _fmt(st) if st else ""))
+
+    for path in (sampled_csv, host_csv, n2a_files["queries"],
+                 n2a_files["host_csv"], parts_files["parts_list"],
+                 parts_files["host_csv"], *parts_files["part_dbs"]):
+        os.remove(path)
+    _torchinit.devices = real_devices
     return runs
 
 
@@ -781,6 +988,7 @@ def _kernel_fns(gram) -> dict:
             "cast_rows": gram.cast_rows,
             "filter_colsum": gram.filter_colsum,
             "gather_tiles": gram.gather_tiles,
+            "bounds_zero_rows": gram.bounds_zero_rows,
             "matmul_u32_acc": gram.matmul_u32_acc,
             "cross_u32_pk": gram.cross_u32_pk,
             "gram_u32_tri": gram.gram_u32_tri,
@@ -952,12 +1160,19 @@ def run(workdir: str) -> list:
         f"build {t_build:.2f} s")
 
     t = time.perf_counter()
-    sres = check_stripe_kernels(torch, gram, device_a2a, big, rng)
-    torch.cuda.empty_cache()
+    sres, C_random, C_counts = check_stripe_kernels(torch, gram, device_a2a,
+                                                    big, rng)
     say(f"[8 kernels] {time.perf_counter() - t:.2f} s")
     for name, cases in sres.items():
         for c in cases:
             say(f"[8 kernel] {name} == plain: {_fmt(c)}")
+    t = time.perf_counter()
+    bres = check_bounds_zero(torch, gram, C_random, C_counts)
+    del C_random, C_counts
+    torch.cuda.empty_cache()
+    say(f"[19 kernels] {time.perf_counter() - t:.2f} s")
+    for c in bres:
+        say(f"[19 kernel] bounds_zero_rows == plain: {_fmt(c)}")
 
     csvs = {}
     runs = {}
@@ -1019,8 +1234,7 @@ def run(workdir: str) -> list:
                            shallow=False),
                f"streamed {form} CSV differs from the matrix route's")
         size = os.path.getsize(csvs["matrix", form])
-        for route in ("streamed", "matrix"):
-            os.remove(csvs[route, form])
+        os.remove(csvs["matrix", form])    # the streamed CSV stays for phase 20
         say(f"[10a oracle] {form}: streamed CSV == matrix route CSV "
             f"({size} bytes); matrix route {m['wall']:.3f} s, launches "
             f"{m['launches']}, peak device memory {m['peak_mib']} MiB, "
@@ -1079,7 +1293,8 @@ def run(workdir: str) -> list:
 
     n2a = new2all_phases(torch, cli, gram, intersect, workdir, db_path,
                          paths, say)
-    parts = parts_phases(torch, cli, gram, fused, workdir, paths, say)
+    parts = parts_phases(torch, cli, gram, fused, workdir, paths, db_path,
+                         say)
 
     t = time.perf_counter()
     scres = check_scan_kernels(torch, gram, intersect, db, rng)
@@ -1091,7 +1306,12 @@ def run(workdir: str) -> list:
     scan = scan_phases(torch, cli, gram, intersect, db, db_path, C_host,
                        host_csv, n2a["files"], workdir, say)
     del C_host
-    os.remove(host_csv)
+    mesh = mesh_phases(
+        torch, cli, gram, intersect, workdir, say, big_path=big_path,
+        streamed_csvs={form: csvs["streamed", form]
+                       for form in ("dense", "sparse")},
+        db_path=db_path, host_csv=host_csv, n2a_files=n2a["files"],
+        parts_files=parts["files"])
 
     def entry(name, source, replaces, res, launches, timed=0):
         """res[timed] gives the times and the bound: the case nearest the
@@ -1122,6 +1342,8 @@ def run(workdir: str) -> list:
               sres["filter_colsum"], sparse),
         entry("gather_tiles", "tril_tiles.cu", 482, sres["gather_tiles"],
               sparse),
+        entry("bounds_zero_rows", "bounds_zero.cu", 519, bres,
+              mesh["streamed", "sparse"]["launches"]),
         entry("matmul_u32_acc", "matmul_acc.cu", 686, qres,
               n2a["1", "dense"]["launches"]),
         entry("cross_u32_pk", "cross_pk.cu", 727, cres,

@@ -15,3 +15,12 @@ def device() -> torch.device:
         raise RuntimeError("the device tier needs a CUDA card, and "
                            "torch.cuda.is_available() is false")
     return torch.device("cuda")
+
+
+def devices() -> list:
+    """One torch.device per visible CUDA card, in index order; raises
+    RuntimeError when CUDA is absent.  Never holds a CPU entry: a mesh of
+    CPU slots exists only where a caller builds one itself, as the tests
+    do."""
+    device()
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

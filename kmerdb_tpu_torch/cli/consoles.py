@@ -1,10 +1,11 @@
 """Mode drivers (counterpart of kmerdb_tpu/cli/consoles.py, without its
-mesh tiers and its ``-from-fasta`` forms, which cli/main.py refuses).
+``-from-fasta`` forms and its sharded build, which cli/main.py refuses).
 
 Each run_* takes a parsed Params and writes the same bytes as kmerdb_tpu.
 ``build``, ``minhash``, ``one2all`` and ``distance`` run on the host;
-``all2all`` over a database and ``new2all`` choose a host or device tier
-in ops/intersect.py (``all2all-parts`` is cli/parts.py).
+``all2all`` and ``all2all-sp`` over a database and ``new2all`` choose a
+host or device tier in ops/intersect.py, or run over the device mesh that
+``-mesh`` asks for (parallel/sharded.py); ``all2all-parts`` is cli/parts.py.
 """
 
 import os
@@ -21,6 +22,7 @@ from ..ops.alphabet import get_alphabet
 from ..utils import csvio, log, native
 from ..utils.filters import AVAILABLE_METRICS, CombinedFilter
 from ..utils.num2str import format_double_cpp, num2str_float
+from ..utils.sampler import Sampler, feed_lower_triangle
 from . import params as P
 from .loader import iter_samples
 from .params import UsageError
@@ -133,6 +135,13 @@ def run_minhash(p):
 # all2all
 # ---------------------------------------------------------------------------
 
+def _active_mesh():
+    """The device mesh the CLI asked for (parallel/runtime), or None for
+    the single-card tiers."""
+    from ..parallel import runtime
+    return runtime.active_mesh()
+
+
 def _matrix_filter(p, db, query_counts=None):
     qc = db.sample_kmer_counts if query_counts is None else query_counts
     return CombinedFilter(p.metric_filters, p.kmer_filter,
@@ -153,11 +162,12 @@ def _emit_matrix_row(ofs, name, cnt, row, i, filt):
 def run_all2all(p):
     """`all2all [-sparse ...] <database> <common_table>`: the dense or
     filtered-sparse lower triangle of the common-k-mer matrix
-    (kmerdb_tpu/cli/consoles.run_all2all without its mesh tier).  Large
-    collections stream row stripes from the card into the writer
-    (_stream_rows); the rest compute the whole matrix on the host or the
-    card (ops/intersect.all2all_counts).  A failure of the streamed route
-    propagates: nothing is recomputed on another route."""
+    (kmerdb_tpu/cli/consoles.run_all2all).  Large collections stream row
+    stripes from the card, or from the slots of a mesh, into the writer
+    (_stream_rows); the rest compute the whole matrix on the host, the
+    card (ops/intersect.all2all_counts) or the mesh
+    (parallel/sharded.all2all_counts_sharded).  A failure of the streamed
+    route propagates: nothing is recomputed on another route."""
     if len(p.files) != 2:
         raise UsageError(p.mode)
     db_filename, out_filename = p.files
@@ -180,18 +190,26 @@ def run_all2all(p):
                 full_row[:i], i, filt)
             prog.step()
 
-        if _stream_rows(db):
-            # the card counts the filter's survivors and pulls only their
-            # tiles; emit() re-applies the exact filter, metric filters
-            # included, which can only narrow the count bounds further
+        mesh = _active_mesh()
+        if _stream_rows(db, mesh):
+            # the device applies the count bounds (the card pulls only the
+            # survivors' tiles, a mesh zeroes the other cells); emit()
+            # re-applies the exact filter, metric filters included, which
+            # can only narrow the count bounds further
             cell_bounds = None
             if filt is not None:
                 lo, hi = p.kmer_filter.bounds
                 cell_bounds = (max(1, int(lo)), min(0xFFFFFFFF, int(hi)))
-            from ..ops import device_a2a
-            device_a2a.all2all_device_rows(db, emit, cell_bounds=cell_bounds)
+            if mesh is not None:
+                from ..parallel import sharded
+                sharded.all2all_rows_sharded(db, mesh, emit,
+                                             cell_bounds=cell_bounds)
+            else:
+                from ..ops import device_a2a
+                device_a2a.all2all_device_rows(db, emit,
+                                               cell_bounds=cell_bounds)
         else:
-            C = intersect.all2all_counts(db)
+            C = _all2all_matrix(db, mesh)
             log.verbose(f"Similarity matrix computed in "
                         f"{time.perf_counter() - t1:.3f}s")
             for i in range(db.n_samples):
@@ -199,11 +217,21 @@ def run_all2all(p):
         prog.done()
 
 
-def _stream_rows(db) -> bool:
+def _all2all_matrix(db, mesh) -> np.ndarray:
+    """The whole count matrix: over the mesh when there is one, else by
+    the tier ops/intersect.all2all_counts chooses."""
+    if mesh is not None:
+        from ..parallel import sharded
+        return sharded.all2all_counts_sharded(db, mesh)
+    return intersect.all2all_counts(db)
+
+
+def _stream_rows(db, mesh=None) -> bool:
     """Whether all2all streams row stripes (ops/device_a2a.
-    all2all_device_rows): KMERDB_A2A_STREAM=1/0 forces it either way;
-    unset, above STREAM_MIN_SAMPLES samples with the host runtime and a
-    CUDA card (kmerdb_tpu/cli/consoles._stream_rows, single card)."""
+    all2all_device_rows, or parallel/sharded.all2all_rows_sharded over a
+    mesh): KMERDB_A2A_STREAM=1/0 forces it either way; unset, above
+    STREAM_MIN_SAMPLES samples with the host runtime and a mesh or a CUDA
+    card (kmerdb_tpu/cli/consoles._stream_rows)."""
     if db.n_samples == 0:
         return False
     env = os.environ.get("KMERDB_A2A_STREAM", "")
@@ -212,16 +240,57 @@ def _stream_rows(db) -> bool:
     # the size first: a small run never pays torch's import
     if db.n_samples <= STREAM_MIN_SAMPLES or not native.available:
         return False
+    if mesh is not None:
+        return True
     import torch
     return torch.cuda.is_available()
+
+
+def run_all2all_sp(p):
+    """`all2all-sp [-min ...] [-max ...] [-sample-rows ...] <database>
+    <common_table>`: the filtered sparse lower triangle, like
+    `all2all -sparse`, with optional row sampling
+    (kmerdb_tpu/cli/consoles.run_all2all_sp over a database)."""
+    if len(p.files) != 2:
+        raise UsageError(p.mode)
+    db_filename, out_filename = p.files
+    db = dbfile.load_db(db_filename, dbfile.PATTERNS)
+    C = _all2all_matrix(db, _active_mesh())
+    filt = _matrix_filter(p, db)
+
+    sampler = None
+    if p.sampling_size != 0:
+        sampler = Sampler(db.n_samples, p.sampling_size,
+                          "best" if p.sampling_criterion else "random")
+
+    with open(out_filename, "w", newline="") as ofs:
+        ofs.write(csvio.matrix_header(db.kmer_length, db.fraction,
+                                      db.sample_names))
+        ofs.write(csvio.totals_row(db.sample_kmer_counts))
+        prog = log.Progress(db.n_samples)
+        if sampler is not None:
+            feed_lower_triangle(sampler, C, filt, p.sampling_criterion,
+                                db.sample_kmer_counts, db.kmer_length)
+        for i in range(db.n_samples):
+            name, cnt = db.sample_names[i], int(db.sample_kmer_counts[i])
+            if sampler is not None:
+                ofs.write(csvio.sparse_row_pairs(name, cnt,
+                                                 sampler.row_pairs(i)))
+            else:
+                row = C[i, :i]
+                row = np.where(filt.mask_row(row, i), row, 0)
+                ofs.write(csvio.sparse_row(name, cnt, row))
+            prog.step()
+        prog.done()
 
 
 def run_new2all(p):
     """`new2all [-sparse ...] <database> <samples> <table>`: the common
     k-mer counts of each new sample against every database sample
-    (kmerdb_tpu/cli/consoles.run_new2all without its mesh tier).  Queries
-    go to ops/intersect.many2all_counts in batches of N2A_FLUSH, and rows
-    are written in input order, dense or filtered sparse."""
+    (kmerdb_tpu/cli/consoles.run_new2all).  Queries go in batches of
+    N2A_FLUSH to ops/intersect.many2all_counts, or, under a mesh, to
+    parallel/sharded.many2all_counts_sharded, and rows are written in input
+    order, dense or filtered sparse."""
     if len(p.files) != 3:
         raise UsageError(p.mode)
     db_filename, samples_arg, out_filename = p.files
@@ -232,8 +301,14 @@ def run_new2all(p):
                                       db.sample_names))
         ofs.write(csvio.totals_row(db.sample_kmer_counts))
 
+        mesh = _active_mesh()
+
         def flush(names, queries):
-            M = intersect.many2all_counts(db, queries)
+            if mesh is not None:
+                from ..parallel import sharded
+                M = sharded.many2all_counts_sharded(db, queries, mesh)
+            else:
+                M = intersect.many2all_counts(db, queries)
             filt = None
             if p.sparse_out:
                 # one filter for the batch: its rows are the queries

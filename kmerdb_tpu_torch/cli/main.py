@@ -3,15 +3,19 @@
 The options, usage text and exit codes are kmerdb_tpu's
 (kmerdb_tpu/cli/main.py): exit 0 on success, 255 on any error.  ``build``,
 ``minhash``, ``distance`` and ``one2all`` run on the host; ``all2all``
-over a database, ``new2all`` and ``all2all-parts`` choose a host or device
-tier (cli/consoles.py, cli/parts.py).  Modes and settings whose code is
-not ported yet are refused with an error rather than run on some other
-route.
+and ``all2all-sp`` over a database, ``new2all`` and ``all2all-parts``
+choose a host or device tier (cli/consoles.py, cli/parts.py), or run over
+the device mesh that ``-mesh <n|auto>`` or KMERDB_MESH asks for
+(parallel/).  Settings whose code is not ported yet (the ``-from-fasta``
+forms, ``build`` over a mesh, the multi-process runtime of KMERDB_COORD,
+the device build and ingest) are refused with an error rather than run on
+some other route.
 """
 
 import os
 import sys
 
+from ..parallel import runtime
 from ..utils import log, native
 from . import consoles, parts
 from .params import MODES, UsageError, parse_args
@@ -22,6 +26,7 @@ _RUNNERS = {
     "distance": consoles.run_distance,
     "one2all": consoles.run_one2all,
     "all2all": consoles.run_all2all,
+    "all2all-sp": consoles.run_all2all_sp,
     "new2all": consoles.run_new2all,
     "all2all-parts": parts.run_all2all_parts,
 }
@@ -102,11 +107,13 @@ class NotPortedError(RuntimeError):
 def _refuse_unported(p) -> None:
     if p.mode not in _RUNNERS:
         raise NotPortedError(f"mode {p.mode}")
-    if p.mode == "all2all" and p.from_fasta:
-        raise NotPortedError("all2all -from-fasta")
+    if p.from_fasta:
+        raise NotPortedError(f"{p.mode} -from-fasta")
+    if os.environ.get("KMERDB_COORD"):
+        raise NotPortedError("KMERDB_COORD (the multi-process mesh)")
     mesh = p.mesh if p.mesh is not None else os.environ.get("KMERDB_MESH", "")
-    if mesh not in ("", "0", "1"):
-        raise NotPortedError(f"-mesh {mesh}")
+    if p.mode == "build" and mesh not in ("", "0", "1"):
+        raise NotPortedError(f"build -mesh {mesh}")
     for var, value in _REFUSED_ENV.items():
         if os.environ.get(var) == value:
             raise NotPortedError(f"{var}={value}")
@@ -121,6 +128,7 @@ def main(argv=None) -> int:
         log.set_level(log.DEBUG if p.debug
                       else log.VERBOSE if p.verbose else log.NORMAL)
         _refuse_unported(p)
+        runtime.configure(p.mesh)
         if p.num_threads:
             native.set_threads(p.num_threads)
         _RUNNERS[p.mode](p)

@@ -45,7 +45,7 @@ class Params:
         self.metric_name = ""
         self.verbose = False
         self.debug = False
-        self.mesh = None          # -mesh <n|auto> (refused above 1)
+        self.mesh = None          # -mesh <n|auto>: device mesh request
         self.from_fasta = False   # all2all -from-fasta (refused)
 
 
@@ -133,8 +133,7 @@ def parse_args(argv: list[str]) -> Params | None:
     if rt is not None:
         p.num_reader_threads = rt
     # kmerdb_tpu extension: -mesh <n|auto> routes the mode's compute
-    # through a device mesh (parsed so that cli/main.py can refuse a
-    # mesh of more than one device)
+    # through a device mesh (parallel/runtime.py)
     p.mesh = find_option(args, "-mesh", str)
 
     if p.mode == "build":

@@ -1,5 +1,5 @@
 """all2all-parts: the grid comparison over partial databases
-(kmerdb_tpu/cli/parts.run_all2all_parts without its mesh tier).
+(kmerdb_tpu/cli/parts.run_all2all_parts).
 
 Pass 1 reads the sample tables of every part; pass 2 walks the grid rows
 and writes globally indexed sparse rows.  The cells come from one of three
@@ -11,13 +11,16 @@ tiers:
   at a time, when the parts' expanded size (4x their files) exceeds the
   cache budget KMERDB_PARTS_CACHE_MB (default 4096);
 * per cell: the diagonal through ops/intersect.all2all_counts, the
-  others through ops/intersect.db2db_counts, each with its own tier choice.
+  others through ops/intersect.db2db_counts, each with its own tier choice;
+  under a device mesh (``-mesh``) through parallel/sharded.py's
+  all2all_counts_sharded and db2db_counts_sharded.
 
 KMERDB_GRID_DEVICE=1 forces a device grid and =0 the per-cell route;
-unset, a device grid runs for more than one part when the grid's host
-work reaches costcal's ``fixed_s`` (ops/fused.device_worthwhile) and a
-CUDA card is present.  KMERDB_GRID_STREAM=1/0 forces the streamed grid on
-or off.  A device failure propagates: no cell is recomputed per cell.
+unset, a device grid runs for more than one part when no mesh is active,
+the grid's host work reaches costcal's ``fixed_s``
+(ops/fused.device_worthwhile) and a CUDA card is present.
+KMERDB_GRID_STREAM=1/0 forces the streamed grid on or off.  A device
+failure propagates: no cell is recomputed per cell.
 """
 
 import os
@@ -28,15 +31,19 @@ from ..io import dbfile
 from ..ops import fused, intersect
 from ..utils import csvio, filters, log
 from ..utils import sampler as sampler_mod
+from .consoles import _active_mesh
 from .params import UsageError
 
 
-def _grid_tier(part_fns, part_sizes, sample_counts, cache_budget):
-    """None (per cell), "grid" or "stream"."""
+def _grid_tier(part_fns, part_sizes, sample_counts, cache_budget,
+               mesh=None):
+    """None (per cell), "grid" or "stream"; a mesh turns an unforced
+    device grid off."""
     grid = intersect._forced("KMERDB_GRID_DEVICE")
     if grid is None:
-        grid = len(part_fns) > 1 and fused.device_worthwhile(
-            int(sum(part_sizes)), int(sum(sample_counts))) \
+        grid = mesh is None and len(part_fns) > 1 \
+            and fused.device_worthwhile(int(sum(part_sizes)),
+                                        int(sum(sample_counts))) \
             and intersect._cuda_available()
     if not grid:
         return None
@@ -103,7 +110,9 @@ def run_all2all_parts(p):
                     cached_bytes += nb
             return db
 
-        tier = _grid_tier(part_fns, part_sizes, sample_counts, cache_budget)
+        mesh = _active_mesh()
+        tier = _grid_tier(part_fns, part_sizes, sample_counts, cache_budget,
+                          mesh)
         grid_cells = grid_stream = None
         if tier is not None:
             if tier == "stream":
@@ -127,6 +136,11 @@ def run_all2all_parts(p):
                     return row_cells[i_col]
                 if grid_cells is not None:
                     return grid_cells[i_row, i_col]
+                if mesh is not None:
+                    from ..parallel import sharded
+                    if i_col == i_row:
+                        return sharded.all2all_counts_sharded(db_row, mesh)
+                    return sharded.db2db_counts_sharded(db_row, db_col, mesh)
                 if i_col == i_row:
                     return intersect.all2all_counts(db_row)
                 return intersect.db2db_counts(db_row, db_col)

@@ -23,7 +23,8 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = CSRC.parent / "build"
 SOURCES = ("gram_pk_tri.cu", "gram_pk_rows.cu", "cross_pk.cu", "tril_tiles.cu",
-           "cast_rows.cu", "filter_colsum.cu", "matmul_acc.cu", "gram_u32.cu")
+           "cast_rows.cu", "filter_colsum.cu", "bounds_zero.cu", "matmul_acc.cu",
+           "gram_u32.cu")
 HEADERS = ("gram_pk.cuh", "tri.cuh")
 #: sm_90a: the Hopper target (plain sm_90 refuses wgmma, which later
 #: kernels will use); -Xptxas -v logs registers, shared memory and spills
@@ -118,7 +119,8 @@ def lib() -> ctypes.CDLL:
             ("kmerdb_tril_tiles", [vp, vp, i64, i32, vp]),
             ("kmerdb_gather_tiles", [vp, vp, vp, vp, i64, i64, i32, vp]),
             ("kmerdb_cast_rows", [vp, vp, i64, vp]),
-            ("kmerdb_filter_colsum", [vp, vp, i64, i64, u32, u32, vp])):
+            ("kmerdb_filter_colsum", [vp, vp, i64, i64, u32, u32, vp]),
+            ("kmerdb_bounds_zero", [vp, vp, i64, i32, u32, u32, vp])):
         fn = getattr(so, name)
         fn.argtypes = args
         fn.restype = i32

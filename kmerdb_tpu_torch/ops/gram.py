@@ -3,7 +3,8 @@ route), a row stripe (its streamed route) or the rectangle of two operands
 (db2db and the all2all-parts grid), the accumulating query contraction of
 new2all, the unpacked Gram and query contraction of the scan tier
 (KMERDB_A2A_PALLAS=0), the triangle and survivor-tile pulls, and the
-stripe passes (uint16 narrowing, survivor counts of a count filter).
+stripe passes (uint16 narrowing, survivor counts of a count filter, and
+the filter itself, which zeroes the cells it drops).
 
 Each kernel has a wrapper, which checks its operands, launches the CUDA
 kernel for CUDA tensors (or raises) and counts its launches, and a plain
@@ -618,7 +619,8 @@ def cast_rows_plain(C: torch.Tensor) -> torch.Tensor:
 
 
 def bias_bounds(lo: int, hi: int) -> np.ndarray:
-    """Inclusive uint32 bounds encoded for filter_colsum as int32[2]
+    """Inclusive uint32 bounds encoded for filter_colsum and
+    bounds_zero_rows as int32[2]
     (u32 ^ 0x80000000), as kmerdb_tpu/ops/pallas_gram.bias_bounds does."""
     return (np.array([lo, hi], dtype=np.uint32)
             ^ np.uint32(0x80000000)).astype(np.int32)
@@ -664,6 +666,44 @@ def filter_colsum_plain(C: torch.Tensor, bounds: np.ndarray) -> torch.Tensor:
     u = C.to(torch.int64) & 0xFFFFFFFF
     keep = ((u >= lo) & (u <= hi)).to(torch.int32)
     return keep.reshape(-1, PULL_TILE, C.shape[1]).sum(1, dtype=torch.int32)
+
+
+def bounds_zero_rows(C: torch.Tensor, bounds: np.ndarray,
+                     dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """C int32[R, S] with every cell outside [lo, hi] set to 0, compared as
+    uint32 (a cell >= 2^31 is negative in int32 storage and still counts as
+    large); `bounds` is bias_bounds(lo, hi).  dtype torch.int16 narrows the
+    result to uint16 bits: a surviving cell >= 65,536 leaves its low 16
+    bits, as the JAX package's astype does.
+
+    Replaces kmerdb_tpu/ops/pallas_gram.py bounds_zero_rows: the count
+    filter of the mesh's streamed sparse all2all, run on each stripe before
+    it is pulled.  CUDA tensors go to csrc/bounds_zero.cu, with the bounds
+    decoded; CPU tensors to bounds_zero_rows_plain."""
+    _check_stripe(C)
+    _check_pull_dtype(dtype)
+    lo, hi = _unbias(bounds)
+    if _kernel_device(C) == "cpu":
+        return bounds_zero_rows_plain(C, bounds, dtype)
+    _require(C.data_ptr() % 16 == 0, "C must be 16-byte aligned")
+    out = torch.empty(C.shape, dtype=dtype, device=C.device)
+    _cuda_call(_cuda.lib().kmerdb_bounds_zero, C.data_ptr(), out.data_ptr(),
+               C.numel(), out.element_size(), lo, hi, device=C.device)
+    bounds_zero_rows.launches += 1
+    return out
+
+
+bounds_zero_rows.launches = 0
+
+
+def bounds_zero_rows_plain(C: torch.Tensor, bounds: np.ndarray,
+                           dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Plain PyTorch version of bounds_zero_rows, on any device."""
+    _check_stripe(C)
+    _check_pull_dtype(dtype)
+    lo, hi = _unbias(bounds)
+    u = C.to(torch.int64) & 0xFFFFFFFF
+    return _narrow(torch.where((u >= lo) & (u <= hi), C, 0), dtype)
 
 
 def tile_tables(i_tab, j_tab, device) -> tuple:

@@ -56,9 +56,11 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _chunk_plan(offs: np.ndarray, P: int, max_p: int, max_e: int):
-    """Pattern-range chunk bounds limited by pattern and element budgets."""
-    bounds = [0]
+def _chunk_plan(offs: np.ndarray, P: int, max_p: int, max_e: int,
+                p0: int = 0):
+    """Chunk bounds over the patterns [p0, P), limited by pattern and
+    element budgets."""
+    bounds = [p0]
     while bounds[-1] < P:
         p0 = bounds[-1]
         p1 = min(P, p0 + max_p)
@@ -216,7 +218,8 @@ def many2all_counts(db: KmerPatternDb, queries: list,
     return C
 
 
-def m2a_prepare(db: KmerPatternDb, queries: list, probes=None):
+def m2a_prepare(db: KmerPatternDb, queries: list, q_align: int | None = None,
+                probes=None):
     """Host operands of sims = H @ B (kmerdb_tpu's m2a_prepare, at the
     port's padding): (H_all [n_chunks, Q_pad, P_pad] hit counts, uint8
     when one 8-bit limb holds every count and uint32 otherwise; B_all
@@ -224,8 +227,9 @@ def m2a_prepare(db: KmerPatternDb, queries: list, probes=None):
 
     Q and S are padded to TILE, each chunk's patterns to KT (a multiple of
     the kernel's 128-pattern stage); chunks follow kmerdb_tpu's pattern
-    and CSR-element budgets.  probes forwards _probe_queries output when
-    the caller already ran it."""
+    and CSR-element budgets.  q_align replaces Q's padding multiple (a mesh
+    cuts the query axis into one share a slot); probes forwards
+    _probe_queries output when the caller already ran it."""
     Q, S, P = len(queries), db.n_samples, db.n_patterns
     if probes is None:
         probes = _probe_queries(db, queries)
@@ -234,7 +238,7 @@ def m2a_prepare(db: KmerPatternDb, queries: list, probes=None):
 
     offs = db.pattern_offsets
     el_pid = db.element_pattern_ids()
-    Q_pad = _round_up(Q, TILE)
+    Q_pad = _round_up(Q, q_align or TILE)
     S_pad = _round_up(S, TILE)
     chunk = min(_CHUNK, max(KT, (64 << 20) // max(S_pad, Q_pad)))
     bounds = _chunk_plan(offs, P, chunk, _CHUNK_E)
@@ -318,29 +322,46 @@ def _add_stats(stats: dict, **kw) -> None:
 # the scan tier (KMERDB_A2A_PALLAS=0): unpacked chunks, one product each
 # ---------------------------------------------------------------------------
 
-def _scan_chunks(db: KmerPatternDb) -> tuple:
-    """(chunk bounds, P_pad, S_pad) of all2all's scan tier, planned as
-    kmerdb_tpu's all2all_counts plans its scan: at most ~192 MB of int8
-    incidence a chunk, then kmerdb_tpu's pattern and CSR-element budgets;
-    each chunk's patterns padded to the port's KT."""
+def _scan_chunks(db: KmerPatternDb, p0: int = 0, p1: int | None = None
+                 ) -> tuple:
+    """(chunk bounds, P_pad, S_pad) of all2all's scan tier over the patterns
+    [p0, p1) (default: all), planned as kmerdb_tpu's all2all_counts plans
+    its scan: at most ~192 MB of int8 incidence a chunk, then kmerdb_tpu's
+    pattern and CSR-element budgets; each chunk's patterns padded to the
+    port's KT."""
     S_pad = _round_up(db.n_samples, TILE)
     chunk = min(_CHUNK, max(1024, (192 << 20) // S_pad))
-    bounds = _chunk_plan(db.pattern_offsets, db.n_patterns, chunk, _CHUNK_E)
-    return bounds, _round_up(int(np.diff(bounds).max()), KT), S_pad
+    bounds = _chunk_plan(db.pattern_offsets,
+                         db.n_patterns if p1 is None else p1, chunk,
+                         _CHUNK_E, p0)
+    return bounds, _round_up(int(np.diff(bounds).max(initial=1)), KT), S_pad
 
 
 def _a2a_scan(db: KmerPatternDb, *, triangle: bool = True) -> np.ndarray:
     """Full symmetric uint32[S, S] on the card by the scan tier
-    (kmerdb_tpu's _a2a_scan): each chunk's int8 incidence is filled into
-    one reused host buffer and pushed, and its Gram, ops/gram.gram_u32_tri
-    (gram_u32 when not `triangle`), is added into C on the card.  The
-    triangle is mirrored on the card and C is pulled once."""
-    import torch
-    from . import device_a2a, gram
+    (kmerdb_tpu's _a2a_scan): _a2a_scan_partial over every pattern, the
+    triangle mirrored on the card, C pulled once."""
     dev = _card()
     t0 = time.perf_counter()
-    S = db.n_samples
-    bounds, P_pad, S_pad = _scan_chunks(db)
+    stats: dict = {}
+    C = _a2a_scan_partial(db, 0, db.n_patterns, dev, stats,
+                          triangle=triangle)
+    return _scan_finish(db, C, triangle, t0, stats)
+
+
+def _a2a_scan_partial(db: KmerPatternDb, p0: int, p1: int, dev, stats: dict,
+                      *, triangle: bool = True):
+    """int32[S_pad, S_pad] on `dev`: the Gram of the patterns [p0, p1) by
+    the scan tier.  Each chunk's int8 incidence is filled into one reused
+    host buffer and pushed, and its Gram, ops/gram.gram_u32_tri (gram_u32
+    when not `triangle`), is added into C on the device; the triangle is
+    left unmirrored.  The weights are limbed to the database's largest, so
+    every range takes the same kernel.  Work is queued on the current
+    stream and not waited for; chunks, host seconds and the kernels' event
+    spans ("events") are added into `stats`."""
+    import torch
+    from . import device_a2a, gram
+    bounds, P_pad, S_pad = _scan_chunks(db, p0, p1)
     w = db.pattern_num_kmers
     n_limbs = max(1, (int(w.max()).bit_length() + 7) // 8)
     el_pid = db.element_pattern_ids()
@@ -348,14 +369,14 @@ def _a2a_scan(db: KmerPatternDb, *, triangle: bool = True) -> np.ndarray:
     wbuf = np.zeros(P_pad, np.uint32)
     kernel = gram.gram_u32_tri if triangle else gram.gram_u32
     C = torch.zeros((S_pad, S_pad), dtype=torch.int32, device=dev)
-    events = device_a2a._Events(dev)
+    events = stats.setdefault("events", device_a2a._Events(dev))
     fill_s = push_s = 0.0
-    for p0, p1 in zip(bounds[:-1], bounds[1:]):
+    for c0, c1 in zip(bounds[:-1], bounds[1:]):
         ta = time.perf_counter()
-        rows, cols = _chunk_cells(db, el_pid, p0, p1)
+        rows, cols = _chunk_cells(db, el_pid, c0, c1)
         _fill_incidence(rows, cols, B)
         wbuf[:] = 0
-        wbuf[:p1 - p0] = w[p0:p1]
+        wbuf[:c1 - c0] = w[c0:c1]
         tb = time.perf_counter()
         # copies: the buffers are refilled for the next chunk
         Bc = torch.from_numpy(B).to(dev, copy=True)
@@ -366,14 +387,25 @@ def _a2a_scan(db: KmerPatternDb, *, triangle: bool = True) -> np.ndarray:
         push_s += tc - tb
         with events.span("gram_s"):
             C.add_(kernel(Bc, wc, n_limbs=n_limbs))
+    _add_stats(stats, chunks=len(bounds) - 1, fill_s=fill_s, push_s=push_s)
+    return C
+
+
+def _scan_finish(db: KmerPatternDb, C, triangle: bool, t0: float,
+                 stats: dict) -> np.ndarray:
+    """uint32[S, S] from C on its device: mirror the triangle there and
+    pull C once; adds the call, with `stats`, to scan_stats."""
+    import torch
+    S = db.n_samples
+    events = stats.pop("events")
     if triangle:
         with events.span("mirror_s"):
             C = torch.tril(C) + torch.tril(C, -1).T
-    kernel_s = events.seconds()          # waits for the card
+    kernel_s = events.seconds()          # waits for the device
     t = time.perf_counter()
     out = np.ascontiguousarray(C.cpu().numpy().view(np.uint32)[:S, :S])
-    _scan_record(dev, t0, chunks=len(bounds) - 1, fill_s=fill_s,
-                 push_s=push_s, pull_s=time.perf_counter() - t, **kernel_s)
+    _scan_record(C.device, t0, pull_s=time.perf_counter() - t, **kernel_s,
+                 **stats)
     return out
 
 
@@ -466,19 +498,28 @@ def _d2d_host(db_row, db_col, up1, up2, cnts) -> np.ndarray:
 
 
 def _d2d_device(db_row, db_col, up1, up2, cnts) -> np.ndarray:
-    """The device tier of db2db (kmerdb_tpu's _d2d_device): pattern-pair
-    chunks, bit-packed along the pair axis straight from both CSRs, are
-    contracted into C on the card by ops/gram.cross_u32_pk with the pairs'
-    shared counts as weights (7-bit limbs up to the largest count); C is
-    pulled once.  The weights are permuted for the port's own KT."""
+    """The device tier of db2db (kmerdb_tpu's _d2d_device):
+    _d2d_partial over every pair on the card, C pulled once."""
+    C = _d2d_partial(db_row, db_col, up1, up2, cnts, _card())
+    return np.ascontiguousarray(C.cpu().numpy().view(np.uint32)
+                                [:db_row.n_samples, :db_col.n_samples])
+
+
+def _d2d_partial(db_row, db_col, up1, up2, cnts, dev):
+    """int32[S1_pad, S2_pad] on `dev`: the pattern pairs (up1, up2) with
+    their shared counts `cnts` contracted by ops/gram.cross_u32_pk.  Chunks
+    of pairs, bit-packed along the pair axis straight from both CSRs, are
+    pushed and added into C with the counts as weights, in 7-bit limbs up
+    to the largest count; the weights are permuted for the port's own KT.
+    No pairs give zeros.  Work is queued on the current stream and not
+    waited for."""
     import torch
     from . import gram
-    dev = _card()
     S1, S2 = db_row.n_samples, db_col.n_samples
     S1_pad, S2_pad = _round_up(max(S1, 1), TILE), _round_up(max(S2, 1), TILE)
     n_pairs = up1.size
     rows = min(_round_up(max(n_pairs, 1), KT), 8 * _CHUNK)
-    n_limbs = max(1, -(-int(cnts.max()).bit_length() // LIMB_BITS))
+    n_limbs = max(1, -(-int(cnts.max(initial=0)).bit_length() // LIMB_BITS))
     (o1, s1), (o2, s2) = _csr(db_row), _csr(db_col)
 
     Ubuf = np.zeros((rows // 8, S1_pad), dtype=np.uint8)
@@ -500,7 +541,7 @@ def _d2d_device(db_row, db_col, up1, up2, cnts) -> np.ndarray:
             torch.from_numpy(Vbuf).to(dev, copy=True),
             torch.from_numpy(gram.pk_weight_order(wbuf, KT).view(np.int32))
             .to(dev, copy=True), C, n_limbs=n_limbs, kt=KT)
-    return np.ascontiguousarray(C.cpu().numpy().view(np.uint32)[:S1, :S2])
+    return C
 
 
 def _fill_bits(pids, offs, sids, buf) -> None:

@@ -78,13 +78,16 @@ def test_distance_matches_jax(corpus, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,env", [
-    (["all2all-sp", "DB", "OUT"], {}),
-    (["all2all-parts", "-mesh", "2", "LIST", "OUT"], {}),
-    (["new2all", "-mesh", "2", "DB", "LIST", "OUT"], {}),
+    (["all2all-sp", "-from-fasta", "LIST", "OUT"], {}),
+    (["all2all-sp", "-from-fasta", "-mesh", "2", "LIST", "OUT"], {}),
+    (["new2all", "-mesh", "2", "DB", "LIST", "OUT"],
+     {"KMERDB_COORD": "localhost:1234"}),
     (["new2all", "DB", "LIST", "OUT"], {"KMERDB_DEVICE_INGEST": "1"}),
     (["all2all", "-from-fasta", "LIST", "OUT"], {}),
-    (["all2all", "-mesh", "2", "DB", "OUT"], {}),
-    (["all2all", "DB", "OUT"], {"KMERDB_MESH": "auto"}),
+    (["all2all", "-from-fasta", "-mesh", "2", "LIST", "OUT"], {}),
+    (["all2all", "DB", "OUT"], {"KMERDB_COORD": "localhost:1234"}),
+    (["build", "-mesh", "2", "LIST", "OUT"], {}),
+    (["build", "LIST", "OUT"], {"KMERDB_MESH": "auto"}),
     (["build", "LIST", "DB"], {"KMERDB_BUILD_DEVICE": "1"}),
     (["build", "LIST", "DB"], {"KMERDB_DEVICE_INGEST": "1"}),
     (["all2all", "DB", "OUT"], {"KMERDB_A2A_ENGINE": "bf16"}),

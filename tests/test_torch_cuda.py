@@ -359,3 +359,110 @@ def test_scan_tiers_match_host_tiers(card, monkeypatch):
     assert gram.matmul_u32.launches > n
     assert intersect.n2a_stats["n_limbs"] == 2
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("R,S", [(1536, 20480), (128, 128)])
+@pytest.mark.parametrize("lo,hi", [(1, 2**32 - 1), (30, 40000),
+                                   (2**31 - 5, 2**31 + 5), (2**31, 2**31)])
+def test_bounds_zero_rows_kernel_matches_plain(card, lo, hi, R, S, dtype):
+    """The streamed route's stripe and the smallest one; bounds on both
+    sides of 2^31, where the int32 storage is negative."""
+    C = _edge_stripe(np.random.default_rng(15), (R, S), card)
+    b = gram.bias_bounds(lo, hi)
+    n = gram.bounds_zero_rows.launches
+    got = gram.bounds_zero_rows(C, b, dtype)
+    torch.cuda.synchronize()
+    assert gram.bounds_zero_rows.launches == n + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, gram.bounds_zero_rows_plain(C, b, dtype))
+    # counted at uint32: a survivor at 2^31 narrows to 0
+    kept = int(torch.count_nonzero(gram.bounds_zero_rows_plain(C, b)))
+    assert 0 < kept < C.numel()
+
+
+def test_bounds_zero_rows_operands_are_refused(card):
+    C = torch.zeros(256 * 256 + 1, dtype=torch.int32, device=card)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        gram.bounds_zero_rows(C.view(256, 256), gram.bias_bounds(1, 9))
+
+
+def _card_mesh(n=4):
+    """A mesh of n slots, each with its own stream, on the one card."""
+    from kmerdb_tpu_torch.parallel.mesh import Mesh
+    return Mesh([torch.device("cuda", 0)] * n)
+
+
+@pytest.mark.skipif(not native.available, reason="no native host runtime")
+@pytest.mark.parametrize("resident_mb", ["4096", "0"])
+@pytest.mark.parametrize("max_w", [1 << 20, 40])
+def test_rows_sharded_on_one_card_matches_host_tier(card, monkeypatch,
+                                                    resident_mb, max_w):
+    """Four slots of the card own row stripes: the uint16 (max_w 40) and
+    uint32 pulls, dense (cast_rows) and with count bounds
+    (bounds_zero_rows), resident and re-packed groups, the last round
+    clamped; each case twice (a missing stream dependency would differ)."""
+    from kmerdb_tpu_torch.parallel import sharded
+    monkeypatch.setenv("KMERDB_A2A_RESIDENT_MB", resident_mb)
+    db, host = _random_db(S=700, P=6000, max_w=max_w)
+    lo = int(host[np.tril_indices(700, -1)].max()) // 2
+    for bounds in (None, (1, 2**32 - 1), (lo, 2**32 - 1)):
+        want = host if bounds is None else \
+            np.where((host >= bounds[0]) & (host <= bounds[1]), host, 0)
+        for _ in range(2):
+            launched = gram.gram_u32_pk_rows.launches, \
+                gram.bounds_zero_rows.launches, gram.cast_rows.launches
+            rows, order = [], []
+            sharded.all2all_rows_sharded(
+                db, _card_mesh(4), lambda i, r: (order.append(i),
+                                                 rows.append(r.copy())),
+                stripe_rows=128, cell_bounds=bounds)
+            assert order == list(range(700))
+            np.testing.assert_array_equal(np.stack(rows), want)
+            st = sharded.last_stats
+            assert st["slots"] == 4 and st["devices"] == 1
+            assert st["rounds"] == 2 and st["gram_s"] > 0
+            assert st["resident_groups"] == (resident_mb != "0")
+            n_rows, n_zero, n_cast = (
+                gram.gram_u32_pk_rows.launches - launched[0],
+                gram.bounds_zero_rows.launches - launched[1],
+                gram.cast_rows.launches - launched[2])
+            assert n_rows == 8 * st["groups"]
+            assert n_zero == (8 if bounds is not None else 0)
+            assert n_cast == (8 if bounds is None and st["narrow"] else 0)
+
+
+@pytest.mark.skipif(not native.available, reason="no native host runtime")
+def test_sharded_counts_on_one_card_match_single_card_tiers(card,
+                                                            monkeypatch):
+    """all2all, new2all and db2db over four slots of the card against the
+    host tiers, each twice."""
+    from kmerdb_tpu_torch.ops import intersect
+    from kmerdb_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(21)
+    pool = rng.integers(0, 1 << 40, size=20_000, dtype=np.uint64)
+    core = np.unique(pool[:17_000])
+    dbs = [_built_db(rng, n, pool[17_000:], core) for n in (130, 70)]
+    queries = [np.unique(rng.choice(pool, size=int(rng.integers(50, 18_000)),
+                                    replace=False)) for _ in range(140)]
+    monkeypatch.setattr(intersect, "_CHUNK_E", 4096)    # many chunks a slot
+    a2a_host = native.a2a_dense(dbs[0].pattern_offsets,
+                                dbs[0].pattern_sample_ids,
+                                dbs[0].pattern_num_kmers, dbs[0].n_samples)
+    m2a_host = intersect.many2all_counts(dbs[0], queries, use_device=False)
+    monkeypatch.setenv("KMERDB_D2D_DEVICE", "0")
+    d2d_host = intersect.db2db_counts(dbs[0], dbs[1])
+    assert int(d2d_host.max()) >= 1 << 14
+    for _ in range(2):
+        n = (gram.gram_u32_tri.launches, gram.matmul_u32_acc.launches,
+             gram.cross_u32_pk.launches)
+        mesh = _card_mesh(4)
+        np.testing.assert_array_equal(
+            sharded.all2all_counts_sharded(dbs[0], mesh), a2a_host)
+        np.testing.assert_array_equal(
+            sharded.many2all_counts_sharded(dbs[0], queries, mesh), m2a_host)
+        np.testing.assert_array_equal(
+            sharded.db2db_counts_sharded(dbs[0], dbs[1], mesh), d2d_host)
+        assert gram.gram_u32_tri.launches >= n[0] + 4
+        assert gram.matmul_u32_acc.launches >= n[1] + 4
+        assert gram.cross_u32_pk.launches >= n[2] + 4

@@ -5,9 +5,11 @@ or ``jax`` in any module of the port or in ``chip_smoke.py``.  A
 subprocess installs the import blocker that ``chip_smoke.py`` installs,
 imports every module of the port, and runs the port's CLI on the host
 tiers over a small corpus: ``build``, ``all2all`` (dense and ``-sparse
--min num-kmers:...``), ``new2all``, ``one2all``, ``all2all-parts``,
-``distance`` and ``minhash``.  Each output file is compared byte for byte
-with what kmerdb_tpu's CLI writes from the same inputs.
+-min num-kmers:...``), ``all2all-sp``, ``new2all``, ``one2all``,
+``all2all-parts``, ``distance`` and ``minhash``; then, over a mesh of two
+CPU slots, ``all2all -mesh 2`` and ``all2all-sp -mesh 2``.  Each output
+file is compared byte for byte with what kmerdb_tpu's CLI writes from the
+same inputs.
 """
 
 import ast
@@ -20,6 +22,7 @@ import sys
 import pytest
 
 from kmerdb_tpu.cli.main import main as jax_main
+from kmerdb_tpu.parallel import runtime as jax_runtime
 from kmerdb_tpu.utils import bench_corpus, native
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -67,6 +70,12 @@ def run(lst, parts, mh_list, out):
         assert main(argv) == 0, argv
     # the host modes never pay torch's multi-second import
     assert "torch" not in sys.modules
+    # a mesh of two CPU slots: the sharded routes on the plain kernels
+    import torch
+    from kmerdb_tpu_torch import _torchinit
+    _torchinit.devices = lambda: [torch.device("cpu")] * 2
+    for argv in MESH_ARGV:
+        assert main([a.format(out=out) for a in argv]) == 0, argv
     import kmerdb_tpu_torch
     for m in pkgutil.walk_packages(kmerdb_tpu_torch.__path__,
                                    "kmerdb_tpu_torch."):
@@ -87,14 +96,22 @@ ARGV = [
     ["all2all", "{out}/db", "{out}/a2a.csv"],
     ["all2all", "-sparse", "-min", "num-kmers:2500", "{out}/db",
      "{out}/a2a-sparse.csv"],
+    ["all2all-sp", "-min", "num-kmers:2500", "{out}/db", "{out}/a2a-sp.csv"],
     ["new2all", "{out}/db", "{lst}", "{out}/n2a.csv"],
     ["one2all", "{out}/db", "{one}", "{out}/o2a.csv"],
     ["all2all-parts", "{out}/parts.list", "{out}/parts.csv"],
     ["distance", "mash", "{out}/a2a.csv", "{out}/a2a.mash"],
     ["minhash", "-f", "0.2", "{mh}"],
 ]
-OUTPUTS = ["db", "part0.db", "a2a.csv", "a2a-sparse.csv", "n2a.csv", "o2a.csv",
-           "parts.csv", "a2a.mash"]
+#: the mesh modes, run after the host modes
+MESH_ARGV = [
+    ["all2all", "-mesh", "2", "{out}/db", "{out}/a2a-mesh.csv"],
+    ["all2all-sp", "-mesh", "2", "-min", "num-kmers:2500", "{out}/db",
+     "{out}/a2a-sp-mesh.csv"],
+]
+OUTPUTS = ["db", "part0.db", "a2a.csv", "a2a-sparse.csv", "a2a-sp.csv",
+           "n2a.csv", "o2a.csv", "parts.csv", "a2a.mash", "a2a-mesh.csv",
+           "a2a-sp-mesh.csv"]
 
 
 def _side(root: pathlib.Path, name: str, samples: list) -> tuple:
@@ -130,13 +147,15 @@ def both_sides(tmp_path_factory):
         out, parts, mh = _side(root, name, samples)
         outs[name] = out
         if name == "jax":
-            for argv in ARGV:
+            for argv in ARGV + MESH_ARGV:
                 argv = [a.format(out=out, lst=lst, parts=parts, mh=mh,
                                  one=samples[3] + ".fasta") for a in argv]
                 assert jax_main(argv) == 0, argv
+            jax_runtime.configure(None)
             continue
         script = root / "isolated.py"
-        script.write_text(_SCRIPT.replace("ARGV", repr(ARGV)))
+        script.write_text(_SCRIPT.replace("MESH_ARGV", repr(MESH_ARGV))
+                          .replace("ARGV", repr(ARGV)))
         env = dict(os.environ, PYTHONPATH=str(REPO))
         env.pop("JAX_PLATFORMS", None)
         r = subprocess.run([sys.executable, str(script), lst, str(parts),
