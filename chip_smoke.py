@@ -53,12 +53,14 @@ one per case), each with its seconds:
     each part built through the CLI: (a) the device grid, (b) the
     streamed device grid, (c) per cell on the device tiers, each with its
     launches;
-15. the oracle: the CSVs of (a), (b) and (c) equal, byte for byte, the
-    CSV that ``all2all-sp`` of the whole database writes on the host C++
-    tier.  The two modes write the same rows by construction (the CPU
-    tests hold them to each other), and the whole-database scatter takes
-    a quarter of the time of all2all-parts' own host tiers, which this
-    script ran until the mesh phases needed the time;
+15. the oracle: all2all-parts on its own host tiers (KMERDB_GRID_DEVICE=0
+    KMERDB_D2D_DEVICE=0 KMERDB_A2A_DEVICE=0: the host diagonal and the
+    per-cell host db2db, no launch) over the first 2 parts, a cell taking
+    them ~20 s, and (a), (b) and (c) over the same 2 parts, each CSV
+    byte-equal to the host tiers'.  Then the CSVs of (a), (b) and (c)
+    over all 4 parts equal, byte for byte, the CSV that ``all2all-sp`` of
+    the whole database writes on the host C++ tier (the two modes write
+    the same rows; the CPU tests hold them to each other);
 16. the scan tier's kernels (KMERDB_A2A_PALLAS=0) against their plain
     versions, exactly, at its shapes on the 4,096-sample database: the
     first chunk of ``_scan_chunks`` (its incidence, P_pad, S_pad 4096),
@@ -93,13 +95,17 @@ one per case), each with its seconds:
 21. ``-mesh 4`` on the 4,096-sample database, each call made twice with
     equal bytes: ``all2all`` (the matrix through
     ``all2all_counts_sharded``, CSV == phase 6's host tier CSV),
-    ``all2all-sp`` (CSV == phase 15's, the host tier's of the same
-    command), ``all2all-sp -sample-rows 3`` on the first 1,024-sample
+    ``all2all-sp`` (CSV == phase 15's all2all-sp CSV, the host tier's of
+    the same command), ``all2all-sp -sample-rows 3`` on the first 1,024-sample
     part (its sampler walks every cell in Python; CSV == the host tier's
     of the same command), ``new2all`` of phase 12's queries
     (``many2all_counts_sharded``, CSV == phase 13's host tier CSV) and
     ``all2all-parts`` over phase 14's parts (``db2db_counts_sharded`` and
-    ``all2all_counts_sharded``, CSV == phase 15's reference).
+    ``all2all_counts_sharded``, CSV == phase 15's all2all-sp CSV).  The
+    launches of each call equal what its own plan comes to: one
+    ``gram_u32_tri`` a chunk of a slot's patterns, one ``matmul_u32_acc``
+    a chunk, slot and flush, one ``cross_u32_pk`` a chunk of a slot's pair
+    share over the 6 cells.
 
 Each kernel's record holds its time, its plain version's, the time of a
 PyTorch call that computes the same function where one exists
@@ -613,14 +619,19 @@ _PARTS_TIERS = {
     "b streamed grid": {"KMERDB_GRID_DEVICE": "1", "KMERDB_GRID_STREAM": "1"},
     "c per cell": {"KMERDB_GRID_DEVICE": "0", "KMERDB_D2D_DEVICE": "1",
                    "KMERDB_A2A_DEVICE": "1"},
+    "host": {"KMERDB_GRID_DEVICE": "0", "KMERDB_D2D_DEVICE": "0",
+             "KMERDB_A2A_DEVICE": "0"},
 }
+#: phase 15: the parts that all2all-parts' host tiers are run on
+HOST_PARTS = 2
 
 
 def parts_phases(torch, cli, gram, fused, workdir, paths, db_path,
                  say) -> dict:
     """Phases 14 and 15: all2all-parts over the corpus in parts, on the
-    device grid, the streamed grid and per cell, against all2all-sp of the
-    whole database (db_path) on the host tier."""
+    device grid, the streamed grid and per cell, against its own host tiers
+    on the first HOST_PARTS parts and against all2all-sp of the whole
+    database (db_path) on the host tier."""
     t = time.perf_counter()
     part_dbs = []
     for pi in range(len(paths) // PART_SIZE):
@@ -631,59 +642,88 @@ def parts_phases(torch, cli, gram, fused, workdir, paths, db_path,
         part_dbs.append(os.path.join(workdir, f"part{pi}.db"))
         _check(cli(["build", "-k", "18", lst, part_dbs[-1]]) == 0,
                f"build of part {pi} failed")
-    parts_list = os.path.join(workdir, "parts.list")
-    with open(parts_list, "w") as f:
-        f.write("\n".join(part_dbs) + "\n")
+    lists = {}
+    for n_parts in (len(part_dbs), HOST_PARTS):
+        lists[n_parts] = os.path.join(workdir, f"parts{n_parts}.list")
+        with open(lists[n_parts], "w") as f:
+            f.write("\n".join(part_dbs[:n_parts]) + "\n")
+    parts_list = lists[len(part_dbs)]
     say(f"[14 parts build] {time.perf_counter() - t:.2f} s; "
         f"{len(part_dbs)} parts of {PART_SIZE} samples")
 
-    csvs, runs = {}, {}
-    for name, env in _PARTS_TIERS.items():
+    def run_tier(phase, name, n_parts) -> tuple:
+        """all2all-parts over the first n_parts parts on the tier `name`:
+        (CSV path, seconds, launches); fails unless the tier's kernels and
+        no other were launched."""
         for k in _PARTS_KNOBS:
             os.environ.pop(k, None)
-        os.environ.update(env)
-        csvs[name] = os.path.join(workdir, f"parts-{name[0]}.csv")
+        os.environ.update(_PARTS_TIERS[name])
+        out = os.path.join(workdir, f"parts{n_parts}-{name[0]}.csv")
         fused.last_stats.clear()
         _reset_launches(gram)
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        rc = cli(["all2all-parts", parts_list, csvs[name]])
+        rc = cli(["all2all-parts", lists[n_parts], out])
         wall = time.perf_counter() - t
         n = _launches(gram)
-        _check(rc == 0, f"all2all-parts ({name}) exited {rc}")
-        runs[name] = dict(wall=wall, launches=n)
-        want = {"cross_u32_pk"} | (
+        for k in _PARTS_KNOBS:
+            os.environ.pop(k, None)
+        _check(rc == 0, f"all2all-parts ({name}, {n_parts} parts) exited {rc}")
+        want = set() if name == "host" else {"cross_u32_pk"} | (
             {"cast_rows"} if "grid" in name else {"gram_pk_tri", "tril_tiles"})
         _check({k for k, v in n.items() if v} == want,
-               f"all2all-parts ({name}) launched {n}, expected {want}")
+               f"all2all-parts ({name}, {n_parts} parts) launched {n}, "
+               f"expected {want}")
         shown = {k: n[k] for k in ("cross_u32_pk", "cast_rows", "gram_pk_tri",
                                    "tril_tiles")}
-        say(f"[14 all2all-parts {name}] {wall:.3f} s CLI call, launches "
-            f"{shown}, peak device memory "
+        say(f"[{phase} all2all-parts {name}, {n_parts} parts] {wall:.3f} s "
+            f"CLI call, launches {shown}, peak device memory "
             f"{torch.cuda.max_memory_allocated() >> 20} MiB, CSV "
-            f"{os.path.getsize(csvs[name])} bytes"
+            f"{os.path.getsize(out)} bytes"
             + ("; grid " + _fmt(fused.last_stats) if fused.last_stats
                else ""))
-    for k in _PARTS_KNOBS:
-        os.environ.pop(k, None)
+        return out, wall, n
 
+    device_tiers = [name for name in _PARTS_TIERS if name != "host"]
+    csvs, runs = {}, {}
+    for name in device_tiers:
+        csvs[name], wall, n = run_tier(14, name, len(part_dbs))
+        runs[name] = dict(wall=wall, launches=n)
+
+    # 15: all2all-parts' own host tiers (the host diagonal and the per-cell
+    # host db2db), on fewer parts: a cell takes them ~20 s
+    want_csv, host_wall, _ = run_tier(15, "host", HOST_PARTS)
+    for name in device_tiers:
+        got_csv, wall, _ = run_tier(15, name, HOST_PARTS)
+        _check(filecmp.cmp(got_csv, want_csv, shallow=False),
+               f"all2all-parts ({name}, {HOST_PARTS} parts) CSV differs from "
+               f"the host tiers'")
+        say(f"[15 oracle] all2all-parts ({name}) CSV == host tiers' CSV on "
+            f"{HOST_PARTS} parts; {wall:.3f} s vs host {host_wall:.3f} s")
+        os.remove(got_csv)
+    os.remove(want_csv)
+    os.remove(lists[HOST_PARTS])
+    runs["host"] = dict(wall=host_wall, n_parts=HOST_PARTS)
+
+    # the whole corpus: all2all-sp of the whole database on the host tier
+    # writes the rows that all2all-parts writes over every part
     host_csv = os.path.join(workdir, "sp-host.csv")
     _set_route(device="0")
     _reset_launches(gram)
     t = time.perf_counter()
     _check(cli(["all2all-sp", db_path, host_csv]) == 0,
            "all2all-sp on the host tier failed")
-    host_wall = time.perf_counter() - t
+    sp_wall = time.perf_counter() - t
     _check(not any(_launches(gram).values()),
            f"the host tier of all2all-sp ran the device: {_launches(gram)}")
     _set_route()
-    for name in _PARTS_TIERS:
+    for name in device_tiers:
         _check(filecmp.cmp(csvs[name], host_csv, shallow=False),
                f"all2all-parts ({name}) CSV differs from the host tier's "
                f"all2all-sp of the whole database")
-        say(f"[15 oracle] all2all-parts ({name}) CSV == the host tier's "
-            f"all2all-sp CSV of the whole database; {runs[name]['wall']:.3f} "
-            f"s vs {host_wall:.3f} s")
+        say(f"[15 oracle] all2all-parts ({name}) CSV over {len(part_dbs)} "
+            f"parts == the host tier's all2all-sp CSV of the whole database; "
+            f"{runs[name]['wall']:.3f} s vs {sp_wall:.3f} s")
         os.remove(csvs[name])
     # the parts and the host tier's CSV stay for phase 21
     runs["files"] = dict(parts_list=parts_list, part_dbs=part_dbs,
@@ -880,8 +920,9 @@ def mesh_phases(torch, cli, gram, intersect, workdir, say, *, big_path,
         walls = []
         for rep in (1, 2):
             out = os.path.join(workdir, f"mesh-{rep}.csv")
-            sharded.last_stats.clear()
-            intersect.scan_stats.clear()
+            for st in (sharded.last_stats, sharded.plan_stats,
+                       intersect.scan_stats):
+                st.clear()
             _reset_launches(gram)
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
@@ -889,7 +930,8 @@ def mesh_phases(torch, cli, gram, intersect, workdir, say, *, big_path,
             walls.append(time.perf_counter() - t)
             _check(rc == 0, f"{key}: {argv[0]} -mesh {MESH_SLOTS} exited {rc}")
             n = _launches(gram)
-            stats = dict(sharded.last_stats or intersect.scan_stats)
+            stats = {**sharded.last_stats, **intersect.scan_stats,
+                     **sharded.plan_stats}
             wrong = check(n, stats)
             _check(wrong is None, f"{key}: {wrong}; launches {n}, {stats}")
             _check(filecmp.cmp(out, want_csv, shallow=False),
@@ -937,9 +979,35 @@ def mesh_phases(torch, cli, gram, intersect, workdir, say, *, big_path,
         os.remove(streamed_csvs[form])
 
     # 21: the matrix routes over the mesh at 4,096 samples
+    # the launches each call's own plan comes to, exactly
     def scan_only(n, st):
-        if not only(n, "gram_u32_tri") or n["gram_u32_tri"] != st["chunks"]:
-            return "expected one gram_u32_tri a chunk and nothing else"
+        if not only(n, "gram_u32_tri") or st["calls"] != 1 \
+                or n["gram_u32_tri"] != st["chunks"]:
+            return ("expected one scan with one gram_u32_tri a chunk of a "
+                    "slot's patterns and nothing else")
+        return None
+
+    def n2a_only(n, st):
+        if not only(n, "matmul_u32_acc") \
+                or st["m2a_calls"] != n2a_files["flushes"] \
+                or n["matmul_u32_acc"] != st["m2a_chunks"] * MESH_SLOTS:
+            return (f"expected {n2a_files['flushes']} flushes with "
+                    f"matmul_u32_acc once a chunk and slot and nothing else")
+        return None
+
+    n_parts = len(parts_files["part_dbs"])
+
+    def parts_only(n, st):
+        if not only(n, "gram_u32_tri", "cross_u32_pk") \
+                or st["calls"] != n_parts \
+                or n["gram_u32_tri"] != st["chunks"] \
+                or st["d2d_calls"] != n_parts * (n_parts - 1) // 2 \
+                or st["d2d_shares"] != st["d2d_calls"] * MESH_SLOTS \
+                or n["cross_u32_pk"] != st["d2d_launches"]:
+            return (f"expected {n_parts} diagonal scans with one gram_u32_tri "
+                    f"a chunk, {n_parts * (n_parts - 1) // 2} cells of "
+                    f"{MESH_SLOTS} pair shares with one cross_u32_pk a chunk "
+                    f"of pairs, and nothing else")
         return None
 
     sampled = ["all2all-sp", "-sample-rows", "3", parts_files["part_dbs"][0]]
@@ -957,21 +1025,16 @@ def mesh_phases(torch, cli, gram, intersect, workdir, say, *, big_path,
              scan_only),
             ("all2all-sp -sample-rows", sampled, sampled_csv, scan_only),
             ("new2all", ["new2all", db_path, n2a_files["queries"]],
-             n2a_files["host_csv"],
-             lambda n, st: None if only(n, "matmul_u32_acc")
-             and n["matmul_u32_acc"] % MESH_SLOTS == 0
-             else "expected matmul_u32_acc once a chunk and slot"),
+             n2a_files["host_csv"], n2a_only),
             ("all2all-parts", ["all2all-parts", parts_files["parts_list"]],
-             parts_files["host_csv"],
-             lambda n, st: None if only(n, "gram_u32_tri", "cross_u32_pk")
-             else "expected gram_u32_tri and cross_u32_pk only")):
+             parts_files["host_csv"], parts_only)):
         walls, n, st, size = twice(key, argv, want, check)
         say(f"[21 {key} -mesh {MESH_SLOTS}] {walls[0]:.3f} s and "
             f"{walls[1]:.3f} s CLI calls, both CSVs == the host tier's "
             f"({size} bytes); launches "
             f"{ {k: v for k, v in n.items() if v} }, peak device memory "
             f"{runs[key]['peak_mib']} MiB"
-            + ("; scan_stats " + _fmt(st) if st else ""))
+            + ("; stats " + _fmt(st) if st else ""))
 
     for path in (sampled_csv, host_csv, n2a_files["queries"],
                  n2a_files["host_csv"], parts_files["parts_list"],

@@ -19,6 +19,7 @@ from ..models import builder
 from ..models.database import KmerPatternDb
 from ..ops import intersect
 from ..ops.alphabet import get_alphabet
+from ..parallel import runtime
 from ..utils import csvio, log, native
 from ..utils.filters import AVAILABLE_METRICS, CombinedFilter
 from ..utils.num2str import format_double_cpp, num2str_float
@@ -135,13 +136,6 @@ def run_minhash(p):
 # all2all
 # ---------------------------------------------------------------------------
 
-def _active_mesh():
-    """The device mesh the CLI asked for (parallel/runtime), or None for
-    the single-card tiers."""
-    from ..parallel import runtime
-    return runtime.active_mesh()
-
-
 def _matrix_filter(p, db, query_counts=None):
     qc = db.sample_kmer_counts if query_counts is None else query_counts
     return CombinedFilter(p.metric_filters, p.kmer_filter,
@@ -190,7 +184,7 @@ def run_all2all(p):
                 full_row[:i], i, filt)
             prog.step()
 
-        mesh = _active_mesh()
+        mesh = runtime.active_mesh()
         if _stream_rows(db, mesh):
             # the device applies the count bounds (the card pulls only the
             # survivors' tiles, a mesh zeroes the other cells); emit()
@@ -255,7 +249,7 @@ def run_all2all_sp(p):
         raise UsageError(p.mode)
     db_filename, out_filename = p.files
     db = dbfile.load_db(db_filename, dbfile.PATTERNS)
-    C = _all2all_matrix(db, _active_mesh())
+    C = _all2all_matrix(db, runtime.active_mesh())
     filt = _matrix_filter(p, db)
 
     sampler = None
@@ -301,7 +295,7 @@ def run_new2all(p):
                                       db.sample_names))
         ofs.write(csvio.totals_row(db.sample_kmer_counts))
 
-        mesh = _active_mesh()
+        mesh = runtime.active_mesh()
 
         def flush(names, queries):
             if mesh is not None:

@@ -29,9 +29,9 @@ import numpy as np
 
 from ..io import dbfile
 from ..ops import fused, intersect
+from ..parallel import runtime
 from ..utils import csvio, filters, log
 from ..utils import sampler as sampler_mod
-from .consoles import _active_mesh
 from .params import UsageError
 
 
@@ -110,7 +110,7 @@ def run_all2all_parts(p):
                     cached_bytes += nb
             return db
 
-        mesh = _active_mesh()
+        mesh = runtime.active_mesh()
         tier = _grid_tier(part_fns, part_sizes, sample_counts, cache_budget,
                           mesh)
         grid_cells = grid_stream = None

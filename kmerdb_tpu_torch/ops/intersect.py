@@ -505,6 +505,12 @@ def _d2d_device(db_row, db_col, up1, up2, cnts) -> np.ndarray:
                                 [:db_row.n_samples, :db_col.n_samples])
 
 
+def _d2d_chunk_rows(n_pairs: int) -> int:
+    """Pairs a chunk of _d2d_partial holds: all of them, padded to KT, up
+    to 8 * _CHUNK; each chunk is one cross_u32_pk launch."""
+    return min(_round_up(max(n_pairs, 1), KT), 8 * _CHUNK)
+
+
 def _d2d_partial(db_row, db_col, up1, up2, cnts, dev):
     """int32[S1_pad, S2_pad] on `dev`: the pattern pairs (up1, up2) with
     their shared counts `cnts` contracted by ops/gram.cross_u32_pk.  Chunks
@@ -518,7 +524,7 @@ def _d2d_partial(db_row, db_col, up1, up2, cnts, dev):
     S1, S2 = db_row.n_samples, db_col.n_samples
     S1_pad, S2_pad = _round_up(max(S1, 1), TILE), _round_up(max(S2, 1), TILE)
     n_pairs = up1.size
-    rows = min(_round_up(max(n_pairs, 1), KT), 8 * _CHUNK)
+    rows = _d2d_chunk_rows(n_pairs)
     n_limbs = max(1, -(-int(cnts.max(initial=0)).bit_length() // LIMB_BITS))
     (o1, s1), (o2, s2) = _csr(db_row), _csr(db_col)
 

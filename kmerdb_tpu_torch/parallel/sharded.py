@@ -33,6 +33,12 @@ from .mesh import Mesh
 #: but gram_s, cast_s and filter_s by CUDA events summed over the slots,
 #: and device_s the rounds' time on the first device
 last_stats: dict = {}
+#: what the calls of many2all_counts_sharded (m2a_*) and
+#: db2db_counts_sharded (d2d_*) since the last clear() cut over the slots,
+#: taken from their plans before anything is queued: calls, m2a_chunks
+#: (each one matmul_u32_acc launch a slot), the non-empty d2d_shares and
+#: the cross_u32_pk launches (d2d_launches) their chunks come to
+plan_stats: dict = {}
 
 
 def _sum_to_first(parts: list) -> torch.Tensor:
@@ -90,6 +96,7 @@ def many2all_counts_sharded(db: KmerPatternDb, queries: list,
     q = H_all.shape[1] // D
     S_pad = B_all.shape[2]
     h_view = np.uint8 if H_all.dtype == np.uint8 else np.int32
+    intersect._add_stats(plan_stats, m2a_calls=1, m2a_chunks=H_all.shape[0])
     C = mesh.run(lambda d, slot: torch.zeros(
         (q, S_pad), dtype=torch.int32, device=slot.device))
     for c in range(H_all.shape[0]):
@@ -120,6 +127,11 @@ def db2db_counts_sharded(db_row: KmerPatternDb, db_col: KmerPatternDb,
         return intersect.db2db_counts(db_row, db_col)
     up1, up2, cnts = pairs
     bounds = _shares(up1.size, mesh.size)
+    shares = [n for n in np.diff(bounds).tolist() if n]
+    intersect._add_stats(
+        plan_stats, d2d_calls=1, d2d_shares=len(shares),
+        d2d_launches=sum(-(-n // intersect._d2d_chunk_rows(n))
+                         for n in shares))
 
     def step(d, slot):
         sl = slice(bounds[d], bounds[d + 1])

@@ -432,11 +432,9 @@ def test_rows_sharded_on_one_card_matches_host_tier(card, monkeypatch,
             assert n_cast == (8 if bounds is None and st["narrow"] else 0)
 
 
-@pytest.mark.skipif(not native.available, reason="no native host runtime")
-def test_sharded_counts_on_one_card_match_single_card_tiers(card,
-                                                            monkeypatch):
-    """all2all, new2all and db2db over four slots of the card against the
-    host tiers, each twice."""
+def _check_sharded_counts(make_mesh, monkeypatch):
+    """all2all, new2all and db2db over make_mesh() against the host tiers,
+    each twice, with the launches their plans come to."""
     from kmerdb_tpu_torch.ops import intersect
     from kmerdb_tpu_torch.parallel import sharded
     rng = np.random.default_rng(21)
@@ -456,13 +454,71 @@ def test_sharded_counts_on_one_card_match_single_card_tiers(card,
     for _ in range(2):
         n = (gram.gram_u32_tri.launches, gram.matmul_u32_acc.launches,
              gram.cross_u32_pk.launches)
-        mesh = _card_mesh(4)
+        mesh = make_mesh()
+        intersect.scan_stats.clear()
+        sharded.plan_stats.clear()
         np.testing.assert_array_equal(
             sharded.all2all_counts_sharded(dbs[0], mesh), a2a_host)
         np.testing.assert_array_equal(
             sharded.many2all_counts_sharded(dbs[0], queries, mesh), m2a_host)
         np.testing.assert_array_equal(
             sharded.db2db_counts_sharded(dbs[0], dbs[1], mesh), d2d_host)
-        assert gram.gram_u32_tri.launches >= n[0] + 4
-        assert gram.matmul_u32_acc.launches >= n[1] + 4
-        assert gram.cross_u32_pk.launches >= n[2] + 4
+        plan = sharded.plan_stats
+        assert intersect.scan_stats["chunks"] >= mesh.size
+        assert plan["m2a_chunks"] >= 1 and plan["d2d_shares"] == mesh.size
+        assert gram.gram_u32_tri.launches \
+            == n[0] + intersect.scan_stats["chunks"]
+        assert gram.matmul_u32_acc.launches \
+            == n[1] + plan["m2a_chunks"] * mesh.size
+        assert gram.cross_u32_pk.launches == n[2] + plan["d2d_launches"]
+
+
+@pytest.mark.skipif(not native.available, reason="no native host runtime")
+def test_sharded_counts_on_one_card_match_single_card_tiers(card,
+                                                            monkeypatch):
+    """Four slots of the one card."""
+    _check_sharded_counts(lambda: _card_mesh(4), monkeypatch)
+
+
+needs_two_cards = pytest.mark.skipif(
+    torch.cuda.device_count() < 2,
+    reason="a mesh over more than one card needs two CUDA cards")
+
+
+@needs_two_cards
+@pytest.mark.skipif(not native.available, reason="no native host runtime")
+def test_sharded_counts_on_two_cards_match_host_tiers(card, monkeypatch):
+    """make_mesh(2): one slot a card.  The partial counts cross devices to
+    be summed, and new2all's B is replicated on both."""
+    from kmerdb_tpu_torch.parallel.mesh import make_mesh
+    assert len(make_mesh(2).devices) == 2
+    _check_sharded_counts(lambda: make_mesh(2), monkeypatch)
+
+
+@needs_two_cards
+@pytest.mark.skipif(not native.available, reason="no native host runtime")
+@pytest.mark.parametrize("resident_mb", ["4096", "0"])
+def test_rows_sharded_on_two_cards_matches_host_tier(card, monkeypatch,
+                                                     resident_mb):
+    """make_mesh(2): the packed groups are copied to the second card, whose
+    slot's kernels are timed by events of its own stream; dense and with
+    count bounds, each twice."""
+    from kmerdb_tpu_torch.parallel import sharded
+    from kmerdb_tpu_torch.parallel.mesh import make_mesh
+    monkeypatch.setenv("KMERDB_A2A_RESIDENT_MB", resident_mb)
+    db, host = _random_db(S=700, P=6000, max_w=40)
+    lo = int(host[np.tril_indices(700, -1)].max()) // 2
+    for bounds in (None, (lo, 2**32 - 1)):
+        want = host if bounds is None else \
+            np.where((host >= bounds[0]) & (host <= bounds[1]), host, 0)
+        for _ in range(2):
+            rows, order = [], []
+            sharded.all2all_rows_sharded(
+                db, make_mesh(2), lambda i, r: (order.append(i),
+                                                rows.append(r.copy())),
+                stripe_rows=128, cell_bounds=bounds)
+            assert order == list(range(700))
+            np.testing.assert_array_equal(np.stack(rows), want)
+            st = sharded.last_stats
+            assert st["slots"] == 2 and st["devices"] == 2
+            assert st["rounds"] == 3 and st["gram_s"] > 0

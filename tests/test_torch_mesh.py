@@ -332,6 +332,34 @@ def test_db2db_counts_sharded_more_slots_than_pairs():
         jax_intersect.db2db_counts(a, b))
 
 
+@needs_native
+def test_plan_stats_hold_the_launches_the_plans_come_to(monkeypatch):
+    """plan_stats adds up, call by call, what each slot is given: the
+    chunks of new2all's operands, db2db's non-empty pair shares and their
+    chunks of pairs (one launch each on a card)."""
+    rng = np.random.default_rng(8)
+    a, b = _parts_dbs(rng, [2, 2], pool_size=600, core_size=500)
+    n_pairs = intersect.d2d_pairs(a, b)[0].size
+    db, queries, _ = _case("chunked-130")
+    monkeypatch.setattr(intersect, "_CHUNK_E", 64)
+    n_chunks = intersect.m2a_prepare(db, queries)[0].shape[0]
+    assert n_chunks > 1
+    sharded.plan_stats.clear()
+    for D in (3, 16):
+        sharded.db2db_counts_sharded(a, b, Mesh(["cpu"] * D))
+        sharded.many2all_counts_sharded(db, queries, Mesh(["cpu"] * D))
+    shares = sum(-(-n_pairs // -(-n_pairs // D)) for D in (3, 16))
+    assert sharded.plan_stats == dict(
+        m2a_calls=2, m2a_chunks=2 * n_chunks, d2d_calls=2, d2d_shares=shares,
+        d2d_launches=shares)
+    monkeypatch.setattr(intersect, "_CHUNK", 16)     # 128 pairs a chunk
+    assert [intersect._d2d_chunk_rows(n) for n in (0, 1, 128, 129, 10**6)] \
+        == [128, 128, 128, 128, 128]
+    monkeypatch.undo()
+    assert [intersect._d2d_chunk_rows(n) for n in (0, 1, 256, 257)] \
+        == [intersect.KT] * 3 + [2 * intersect.KT]
+
+
 # (e) the CLI under -mesh and KMERDB_MESH, byte for byte
 
 @pytest.fixture(scope="module")
