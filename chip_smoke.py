@@ -8,14 +8,18 @@ one per case), each with its seconds:
 
 1. environment: torch, CUDA, and the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
-2. the kernel build (one nvcc per source, in parallel);
+2. the kernel build (one nvcc per source, in parallel), with ptxas's
+   registers, shared memory and spill bytes of the packed Gram's four
+   kernels (gram_pk.cuh's block: the triangle, stripe and cross Grams and
+   the sweep's int8), which their records in the kernels' line carry;
 3. the 4,096-sample x 30 kbp scale corpus (the ICTV-scale stand-in of
    bench.py) and its database, built through the port's CLI entry point;
 4. the matrix route's kernels against their plain PyTorch versions on the
    card, exact equality, at the shapes the route gives them (the
    database's light pattern group at S_pad = 4096; distinct random
-   weights for 1 and 5 limbs, a K block other than the default, C seeded
-   non-zero), with the times of both;
+   weights for 1, 5 and 2 limbs, and every bit set with both 7-bit limbs
+   127; a K block other than the default, C seeded non-zero), with the
+   times of both;
 5. ``all2all`` on the matrix route (KMERDB_A2A_DEVICE=1) through the same
    entry point, the launch counters reset just before and read just
    after, and the device tier's phase times; then the same in a fresh
@@ -26,8 +30,8 @@ one per case), each with its seconds:
    database: above the 16,384-sample gate, so ``all2all`` streams;
 8. the streamed route's kernels against their plain versions on the card,
    exactly, at its shapes (the default 1,536-row stripe at S_pad 20,480,
-   a stripe other than the first, the database's first light group),
-   with the times of both;
+   a stripe other than the first, the database's first light group; the
+   cases of phase 4), with the times of both;
 9. the streamed route through the CLI with no route setting, dense and
    ``-sparse -min num-kmers:27000``, launch counters reset before each
    call and read after it, with ``last_stats`` and peak device memory;
@@ -40,8 +44,10 @@ one per case), each with its seconds:
     4,096-sample database (Q_pad 512, S_pad 4096, the P_pad of the first
     m2a_prepare chunk; uint8 H over 0..255, and uint32 H of 4 limbs at
     2^31 and above, C seeded non-zero), ``cross_u32_pk`` at the parts
-    grid's shape (weight 1, 1,024 x 1,024) and at a db2db shape (1,024 x
-    640, distinct weights past 2^14, a K block other than the default);
+    grid's shape (weight 1, 1,024 x 1,024), at a db2db shape (1,024 x
+    640, distinct weights past 2^14, a K block other than the default),
+    at that shape with two limbs of distinct weights, and at the grid's
+    shape with every bit set and both limbs 127;
 12. ``new2all`` through the CLI on the device tier (KMERDB_N2A_DEVICE=1):
     the database of phase 3 against the first 1,100 genomes of its own
     list (flushes of 512, 512 and 76 queries), dense and ``-sparse -min
@@ -136,9 +142,10 @@ PyTorch call that computes the same function where one exists
 (``library_ms``, else null), and its bound: the larger of its integer
 operations over the int8 peak (the bf16 peak for the sweep's bf16
 variants) and its bytes (inputs read once, outputs written once) over the
-memory rate, all of an H100 SXM at 700 W.  The
-next-to-last line is a JSON object of the kernels, the last
-``{"ok": true, "device": {...}}``.  A failure exits non-zero without them.
+memory rate, all of an H100 SXM at 700 W; the packed Gram's four also
+hold ptxas's ``registers`` and ``spill_bytes``.  The next-to-last line
+is a JSON object of the kernels, the last ``{"ok": true, "device":
+{...}}``.  A failure exits non-zero without them.
 The script and the port import nothing of JAX: an import blocker refuses
 kmerdb_tpu and jax before the port is imported.
 """
@@ -147,6 +154,7 @@ import filecmp
 import importlib.abc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -264,6 +272,23 @@ def _first_group(device_a2a, db, kt_check):
     return Bp_np, wbuf[:rows].copy(), rows_check, kt, tile, S_pad
 
 
+#: the packed Gram's cases in phases 4 and 8: (bits, limbs), "ones" every
+#: bit set and every 7-bit limb 127 (the largest products; counts past 2^31)
+PK_CASES = (("random", 1), ("random", 5), ("random", 2), ("ones", 2))
+
+
+def _pk_case(rng, Bp_np, bits, n_limbs):
+    """(packed operand, natural-order weights) of one PK_CASES case:
+    the group's bits with distinct random weights of n_limbs limbs, or
+    every bit set with every limb 127."""
+    rows = 8 * Bp_np.shape[0]
+    if bits == "ones":
+        return np.full_like(Bp_np, 255), np.full(
+            rows, (1 << min(32, 7 * n_limbs)) - 1, np.uint64).astype(np.uint32)
+    return Bp_np, rng.integers(0, 1 << min(32, 7 * n_limbs), size=rows,
+                               dtype=np.uint64).astype(np.uint32)
+
+
 def check_kernels(torch, gram, device_a2a, db, rng) -> dict:
     """Phase 4: the matrix route's kernels == plain versions on the
     database's light group."""
@@ -274,19 +299,20 @@ def check_kernels(torch, gram, device_a2a, db, rng) -> dict:
     C0_np = rng.integers(0, 1 << 32, size=(S_pad, S_pad), dtype=np.uint64)
     C0_np = C0_np.astype(np.uint32)
     out = {"gram_pk_tri": [], "tril_tiles": []}
-    for n_limbs in (1, 5):
-        w_np = rng.integers(0, 1 << min(32, 7 * n_limbs), size=rows_check,
-                            dtype=np.uint64).astype(np.uint32)
+    for bits, n_limbs in PK_CASES:
+        B_np, w_np = _pk_case(rng, Bp_np, bits, n_limbs)
         Bp, w, C0 = gram.from_jax_layout(
-            Bp_np, gram.pk_weight_order(w_np, kt_check), C0_np, dev)
+            B_np, gram.pk_weight_order(w_np, kt_check), C0_np, dev)
         kw = dict(n_limbs=n_limbs, kt=kt_check, tile=tile)
-        Ck = gram.gram_u32_pk_tri(Bp, w, C0.clone(), **kw)
+        Ck_case = gram.gram_u32_pk_tri(Bp, w, C0.clone(), **kw)
         Cp = gram.gram_u32_pk_tri_plain(Bp, w, C0.clone(), **kw)
         torch.cuda.synchronize()
-        err = _err(torch, Ck, Cp)
-        _check(torch.equal(Ck, Cp) and not torch.equal(Ck, C0),
+        err = _err(torch, Ck_case, Cp)
+        _check(torch.equal(Ck_case, Cp) and not torch.equal(Ck_case, C0),
                f"gram_pk_tri differs from its plain version "
-               f"(n_limbs={n_limbs}, max_abs_err={err})")
+               f"({bits}, n_limbs={n_limbs}, max_abs_err={err})")
+        if (bits, n_limbs) == PK_CASES[1]:
+            Ck = Ck_case               # random cells for tril_tiles
         Ct = C0.clone()
         ms = _cuda_ms(torch, lambda: gram.gram_u32_pk_tri(Bp, w, Ct, **kw), 5)
         plain_ms = _cuda_ms(
@@ -295,10 +321,11 @@ def check_kernels(torch, gram, device_a2a, db, rng) -> dict:
         tri = (nt + 1) / (2 * nt)
         ops = 2.0 * rows_check * S_pad * S_pad * tri * n_limbs
         out["gram_pk_tri"].append(dict(
-            n_limbs=n_limbs, rows=rows_check, S_pad=S_pad, kt=kt_check,
-            tile=tile, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bits=bits, n_limbs=n_limbs, rows=rows_check, S_pad=S_pad,
+            kt=kt_check, tile=tile, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             tops=ops / ms / 1e9, ops=ops,
             bytes=rows_check * (S_pad // 8 + 4) + 8 * S_pad * S_pad * tri))
+        del Bp, w, C0, Cp, Ct, Ck_case
     for dtype in (torch.int16, torch.int32):
         tk = gram.tril_tiles(Ck, dtype)
         tp = gram.tril_tiles_plain(Ck, dtype)
@@ -333,19 +360,21 @@ def check_stripe_kernels(torch, gram, device_a2a, db, rng) -> dict:
 
     C0_np = rng.integers(0, 1 << 32, size=(R, S_pad), dtype=np.uint64)
     C0_np = C0_np.astype(np.uint32)
-    for n_limbs in (1, 5):
-        w_np = rng.integers(0, 1 << min(32, 7 * n_limbs), size=rows_check,
-                            dtype=np.uint64).astype(np.uint32)
+    for bits, n_limbs in PK_CASES:
+        B_np, w_np = _pk_case(rng, Bp_np, bits, n_limbs)
         Bp, w, C0 = gram.from_jax_layout(
-            Bp_np, gram.pk_weight_order(w_np, kt_check), C0_np, dev)
+            B_np, gram.pk_weight_order(w_np, kt_check), C0_np, dev)
+        del B_np
         kw = dict(n_limbs=n_limbs, kt=kt_check, tile=tile)
-        Ck = gram.gram_u32_pk_rows(Bp, w, C0.clone(), rt0, **kw)
+        Ck_case = gram.gram_u32_pk_rows(Bp, w, C0.clone(), rt0, **kw)
         Cp = gram.gram_u32_pk_rows_plain(Bp, w, C0.clone(), rt0, **kw)
         torch.cuda.synchronize()
-        err = _err(torch, Ck, Cp)
-        _check(torch.equal(Ck, Cp) and not torch.equal(Ck, C0),
+        err = _err(torch, Ck_case, Cp)
+        _check(torch.equal(Ck_case, Cp) and not torch.equal(Ck_case, C0),
                f"gram_pk_rows differs from its plain version "
-               f"(n_limbs={n_limbs}, max_abs_err={err})")
+               f"({bits}, n_limbs={n_limbs}, max_abs_err={err})")
+        if (bits, n_limbs) == PK_CASES[1]:
+            Ck = Ck_case               # random cells for phase 19
         Ct = C0.clone()
         ms = _cuda_ms(torch, lambda: gram.gram_u32_pk_rows(Bp, w, Ct, rt0,
                                                            **kw), 3)
@@ -353,11 +382,11 @@ def check_stripe_kernels(torch, gram, device_a2a, db, rng) -> dict:
             Bp, w, Ct, rt0, **kw), 1)
         ops = 2.0 * rows_check * R * S_pad * n_limbs
         out["gram_pk_rows"].append(dict(
-            n_limbs=n_limbs, rows=rows_check, R=R, rt0=rt0, S_pad=S_pad,
-            kt=kt_check, tile=tile, max_abs_err=err, ms=ms,
+            bits=bits, n_limbs=n_limbs, rows=rows_check, R=R, rt0=rt0,
+            S_pad=S_pad, kt=kt_check, tile=tile, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, tops=ops / ms / 1e9, ops=ops,
             bytes=rows_check * (S_pad // 8 + 4) + 8 * R * S_pad))
-        del Bp, w, C0, Cp, Ct
+        del Bp, w, C0, Cp, Ct, Ck_case
 
     # the group's real counts in that stripe, at the route's own kt
     rows = w_db.size                       # a multiple of kt
@@ -515,8 +544,10 @@ def check_query_kernels(torch, gram, intersect, db, queries, rng) -> list:
 def check_cross_kernels(torch, gram, device_a2a, db, rng) -> list:
     """Phase 11: cross_u32_pk == plain on the database's first light group:
     the parts grid's shape (samples 0..1023 x 1024..2047, weight 1, the
-    port's K block) and a db2db shape (1,024 x 640, distinct weights up to
-    2^15, three limbs, another K block)."""
+    port's K block), a db2db shape (1,024 x 640, distinct weights up to
+    2^15, three limbs, another K block), the db2db shape at two limbs of
+    distinct weights, and the grid's shape with every bit set and both
+    limbs 127."""
     dev = torch.device("cuda")
     kt_check = 4 * device_a2a.geom.KT
     Bp_np, _, rows, _, _, _ = _first_group(device_a2a, db, kt_check)
@@ -529,12 +560,18 @@ def check_cross_kernels(torch, gram, device_a2a, db, rng) -> list:
     Up = cols(0, part)
     w_d2d = rng.integers(1, 1 << 15, size=rows, dtype=np.uint64)
     _check(int(w_d2d.max()) >= 1 << 14, "db2db weights below 2^14")
+    w_2 = rng.integers(1, 1 << 14, size=rows, dtype=np.uint64)
+    ones = torch.full((rows // 8, part), 255, dtype=torch.uint8, device=dev)
     out = []
-    for shape, Vp, w_np, n_limbs, kt in (
-            ("grid", cols(part, 2 * part), np.ones(rows, np.uint32), 1,
+    for shape, Up, Vp, w_np, n_limbs, kt in (
+            ("grid", Up, cols(part, 2 * part), np.ones(rows, np.uint32), 1,
              device_a2a.geom.KT),
-            ("d2d", cols(2 * part, 2 * part + d2d), w_d2d.astype(np.uint32),
-             3, kt_check)):
+            ("d2d", Up, cols(2 * part, 2 * part + d2d),
+             w_d2d.astype(np.uint32), 3, kt_check),
+            ("d2d 2 limbs", Up, cols(2 * part, 2 * part + d2d),
+             w_2.astype(np.uint32), 2, kt_check),
+            ("ones", ones, ones, np.full(rows, (1 << 14) - 1, np.uint32), 2,
+             device_a2a.geom.KT)):
         w = torch.from_numpy(gram.pk_weight_order(w_np, kt).view(np.int32)) \
             .to(dev)
         S1, S2 = Up.shape[1], Vp.shape[1]
@@ -1278,6 +1315,35 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
     return {"variants": res, "on_db": rows, "int8_ratio": ratio}
 
 
+#: the packed Gram's kernels (gram_pk.cuh's block) by their records' names
+PK_KERNELS = {"gram_pk_tri": "gram_pk_tri_kernel",
+              "gram_pk_rows": "gram_pk_rows_kernel",
+              "cross_u32_pk": "cross_pk_kernel",
+              "sweep_int8": "sweep_int8_kernel"}
+
+
+def _pk_resources(log: str) -> dict:
+    """PK_KERNELS' registers, spill bytes (stores + loads) and shared memory
+    by record name, from nvcc's -Xptxas -v output; fails if one is
+    missing."""
+    out, rec = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            rec = next((r for r, k in PK_KERNELS.items() if k in m[1]), None)
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+        if rec and spill:
+            out[rec] = dict(spill_bytes=int(spill[1]) + int(spill[2]))
+        regs = re.search(r"Used (\d+) registers.* (\d+) bytes smem", ln)
+        if rec in out and regs:
+            out[rec].update(registers=int(regs[1]), smem_bytes=int(regs[2]))
+    _check(all(len(out.get(r, {})) == 3 for r in PK_KERNELS),
+           f"ptxas gave no resources for some of {PK_KERNELS}: {out}")
+    return out
+
+
 def _kernel_fns(gram) -> dict:
     return {"gram_pk_tri": gram.gram_u32_pk_tri,
             "tril_tiles": gram.tril_tiles,
@@ -1359,6 +1425,9 @@ def run(workdir: str) -> list:
         f"{os.path.relpath(_cuda.library_path())}; ptxas: " + "; ".join(
             ln.split("info    : ")[1] for ln in _cuda.build_log().splitlines()
             if "registers" in ln))
+    pk_res = _pk_resources(_cuda.build_log())
+    say("[2 build] packed Gram block (gram_pk.cuh): " + "; ".join(
+        f"{rec} {_fmt(r)}" for rec, r in pk_res.items()))
 
     t = time.perf_counter()
     db_path, db, t_corpus, t_build, scale_list = _corpus(
@@ -1636,7 +1705,7 @@ def run(workdir: str) -> list:
 
     dense = runs["streamed", "dense"]["launches"]
     sparse = runs["streamed", "sparse"]["launches"]
-    return [
+    kernels = [
         entry("gram_pk_tri", "gram_pk_tri.cu", 196, kres["gram_pk_tri"],
               launches_matrix),
         entry("tril_tiles", "tril_tiles.cu", 392, kres["tril_tiles"],
@@ -1669,6 +1738,11 @@ def run(workdir: str) -> list:
           "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
           "library_ms": r["library_ms"]}
          for v, r in sw["variants"].items()]
+    for k in kernels:
+        if k["name"] in pk_res:
+            r = pk_res[k["name"]]
+            k.update(registers=r["registers"], spill_bytes=r["spill_bytes"])
+    return kernels
 
 
 def main() -> int:

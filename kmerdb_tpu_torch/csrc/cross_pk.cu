@@ -1,7 +1,8 @@
 // Packed cross-database Gram for Hopper: C <- C + U^T diag(w) V, exact mod 2^32.
 //
 // Replaces cross_u32_pk of kmerdb_tpu/ops/pallas_gram.py with the int8 body
-// _gram_pk_body_s8 (7-bit weight limbs): db2db contracts pattern-pair rows,
+// _gram_pk_body_s8 (7-bit weight limbs), here on Hopper's int8 tensor cores
+// (mma.sync, two blocks an SM): db2db contracts pattern-pair rows,
 // where row p of U is the sample incidence of the row database's pattern and
 // row p of V that of the column database's, weighted by their shared k-mers;
 // the all2all-parts grid contracts union k-mer rows at weight 1.  Operands,
@@ -21,7 +22,7 @@
 
 namespace {
 
-__global__ void __launch_bounds__(gram_pk::kThreads)
+__global__ void __launch_bounds__(gram_pk::kThreads, gram_pk::kMinBlocks)
 cross_pk_kernel(const uint8_t* __restrict__ up, const uint8_t* __restrict__ vp,
                 const uint32_t* __restrict__ w, uint32_t* __restrict__ c, int64_t n_rows8,
                 int64_t s1_pad, int64_t s2_pad, int n_limbs, int kb) {

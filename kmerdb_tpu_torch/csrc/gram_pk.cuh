@@ -1,6 +1,6 @@
 // One 128 x 128 output block of the packed two-operand Gram, shared by the
 // triangle (gram_pk_tri.cu), row-stripe (gram_pk_rows.cu) and rectangle
-// (cross_pk.cu) kernels:
+// (cross_pk.cu) kernels and the sweep's int8 variant (gram_sweep.cu):
 //   out[r, c] += sum_p bit_u(p, row0 + r) * w[p] * bit_v(p, col0 + c)   mod 2^32.
 // The two Grams of one database pass the same operand as u and v.
 //
@@ -16,145 +16,199 @@
 // itself a multiple of 128, so a stage never crosses a kt block.
 //
 // Stage.  16 packed rows (128 patterns) of the block's two column slabs are
-// unpacked into shared memory as dp4a words: the word for (bit plane b,
-// quad q, sample s) holds, one per byte, the bits of patterns
-// 8*(r0 + 4q + k) + b, k = 0..3.  For each 7-bit weight limb l the lhs words
-// are those bits masked by the bytes (w >> 7l) & 0x7F of the same patterns,
-// so one __dp4a adds four (bit * w_l) * bit products into a partial that
-// stays below 127 * 128 per stage; the partial joins the uint32 accumulator
-// as part << 7l, which wraps mod 2^32 like the reference's num_kmers_t.
-// This is the int8 engine of the TPU kernels (_gram_pk_body_s8), with the
-// TPU's sequential K grid axis as the stage loop inside the block.
+// unpacked into shared memory, one row of 32 words a sample: word 4b + q
+// holds, one per byte, the bits of patterns 8*(r0 + 4q + k) + b, k = 0..3.
+// The row slab's words are masked by the bytes (w >> 7l) & 0x7F of the same
+// patterns (weight limb l), whose 32 words a stage are built once into
+// shared memory for 8 stages at a time.  Threads 0..127 stage a column of
+// the row slab each and 128..255 one of the column slab; the next stage's
+// 16 bytes a thread are loaded into registers while the product runs.
+//
+// Product.  The staged words are the int8 operands of Hopper's tensor cores
+// (mma_s8.cuh, m16n8k32) as they stand: K = (bit plane b, quad q, byte k),
+// one K step of 32 takes bit planes 2ks and 2ks + 1 (words 8ks .. 8ks + 7
+// of each sample), the same order in A, B and the weights.  8 warps each
+// own 64 x 32 outputs, 4 x 4 tiles of 16 x 8, and load their fragments with
+// ldmatrix (4 x 8 rows of 16 bytes a call); a sample's row is padded to 36
+// words so that those 8 rows fall on distinct banks.  The limbs are the
+// outer loop: limb l's sum over at most 2^24 patterns (< 127 * 2^24 < 2^31,
+// so no s32 sum inside the mma exceeds its range) joins out as sum << 7l
+// in uint32 arithmetic, which wraps mod 2^32 like the reference's
+// num_kmers_t.  This is the int8 engine of the TPU kernels
+// (_gram_pk_body_s8), with the TPU's sequential K grid axis as the stage
+// loop inside the block.
 //
 // What bounds it.  Integer multiply-adds: far above the card's
-// operations-per-byte balance.  Every operand of the inner loop sits in
-// shared memory and registers (each thread owns an 8 x 8 block of outputs
-// and issues 64 dp4a per 16 bytes it loads); the packed slabs are re-read
-// from device memory once per output block.  dp4a runs on the CUDA cores;
-// the int8 tensor-core path (wgmma on s8 operands staged by TMA) is later
-// work.
+// operations-per-byte balance.  The packed slabs are re-read from device
+// memory once per output block and limb; every operand of the product
+// sits in shared memory and registers.  The block takes 37,888 bytes of
+// static shared memory and at most 128 registers a thread (ptxas: 118, no
+// spill), so two blocks share an SM and one's staging overlaps the
+// other's product.  On an H100 SXM (PERF.md §6) a block multiplies at
+// about 2 int8 Tops whether it has its SM alone or shares it, so the SM
+// is not the limit (two blocks reach about a quarter of the int8 peak):
+// the block waits on itself, on two barriers a stage and on the next
+// stage's bytes, loaded one stage ahead.  A deeper staging pipeline
+// (cp.async or TMA into a ring of stages, wgmma) is later work.
 #pragma once
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "mma_s8.cuh"
+
 namespace gram_pk {
 
-constexpr int kBlock = 128;        // output block edge
-constexpr int kRows = 16;          // packed rows per stage: 128 patterns
-constexpr int kQuads = kRows / 4;  // dp4a words per bit plane and sample
-constexpr int kThreads = 256;      // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kBlock = 128;                  // output block edge
+constexpr int kRows = 16;                    // packed rows per stage: 128 patterns
+constexpr int kWords = 32;                   // operand words a sample and stage
+constexpr int kPitch = kWords + 4;           // a sample's words in shared memory
+constexpr int kThreads = 256;                // 8 warps of 64 x 32 outputs
+constexpr int kMinBlocks = 2;                // blocks an SM holds: <= 128 registers
+constexpr int kGroup = kThreads / kWords;    // stages whose limb words are built at once
 constexpr int kLimbBits = 7;
+constexpr int64_t kFlushRows8 = int64_t{1} << 21;  // 2^24 patterns a flush
 
-// 35,328 bytes: under the 48 KB of static shared memory a block may hold
+// 37,888 bytes: under the 48 KB of static shared memory a block may hold
 struct Smem {
-  __align__(16) uint32_t a[8][kQuads][kBlock];  // lhs: row-slab bits x limb
-  __align__(16) uint32_t b[8][kQuads][kBlock];  // rhs: column-slab bits
-  uint32_t x[kQuads][kBlock];                   // row slab, 4 packed rows a word
-  uint32_t w[8][kRows];                         // stage weights by bit plane
+  __align__(16) uint32_t a[kBlock][kPitch];   // lhs: row-slab bits x limb
+  __align__(16) uint32_t b[kBlock][kPitch];   // rhs: column-slab bits
+  __align__(16) uint32_t wl[kGroup][kWords];  // limb words of kGroup stages
 };
 
-// Called by all kThreads threads of the block; `out` must be 16-byte aligned
-// and `ld` a multiple of 4.
+// Four 8 x 8 matrices of 32-bit words: lane i gives row i % 8 of matrix
+// i / 8 (16 contiguous bytes); lane (g, t) receives word t of row g of each.
+__device__ __forceinline__ void ldsm_x4(const uint32_t* p, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+// The 16 packed rows from r of one column: row r + 4q + k in byte k of x[q].
+__device__ __forceinline__ void load_rows(const uint8_t* __restrict__ src, int64_t ld, int64_t r,
+                                          uint32_t (&x)[4]) {
+  src += r * ld;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t v = 0u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v |= static_cast<uint32_t>(src[(4 * q + k) * ld]) << (8 * k);
+    x[q] = v;
+  }
+}
+
+// Called by all kThreads threads of the block; `out` must be 8-byte aligned
+// and `ld` even.
 __device__ __forceinline__ void block(Smem& sm, const uint8_t* __restrict__ up, int64_t ld_u,
                                       const uint8_t* __restrict__ vp, int64_t ld_v,
                                       const uint32_t* __restrict__ w, int64_t n_rows8,
                                       int n_limbs, int kb, int64_t row0, int64_t col0,
                                       uint32_t* __restrict__ out, int64_t ld) {
   const int tid = threadIdx.x;
-  // thread (ty, tx) owns rows {ty*4 + k, 64 + ty*4 + k} and columns
-  // {tx*4 + k, 64 + tx*4 + k}, k = 0..3: 16-byte shared loads that a
-  // quarter warp takes from 128 contiguous bytes
-  const int ty = tid / 16;
-  const int tx = tid % 16;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  // staging: warps 0-3 take the row slab, 4-7 the column slab, a column each
+  const bool lhs = tid < kBlock;
+  const int col = tid % kBlock;
+  const uint8_t* src = lhs ? up + row0 + col : vp + col0 + col;
+  const int64_t ld_src = lhs ? ld_u : ld_v;
+  uint32_t* dst = lhs ? sm.a[col] : sm.b[col];
+  // product: warp (wm, wn) owns rows 64wm .. 64wm + 63 and columns
+  // 32wn .. 32wn + 31; the rows its lane hands to ldmatrix: A's matrices
+  // are (rows 0-7, 8-15) x (words 0-3, 4-7) of a 16-row tile, B's (words
+  // 0-3, 4-7) x (rows 0-7, 8-15) of two 8-column tiles
+  const int wm = warp / 4;
+  const int wn = warp % 4;
+  const uint32_t* a_frag = &sm.a[64 * wm + lane % 16][4 * (lane / 16)];
+  const uint32_t* b_frag = &sm.b[32 * wn + 8 * (lane / 16) + lane % 8][4 * (lane / 8 % 2)];
 
-  uint32_t acc[8][8];
+  for (int l = 0; l < n_limbs; ++l) {
+    for (int64_t c0 = 0; c0 < n_rows8; c0 += kFlushRows8) {
+      const int64_t c1 = c0 + kFlushRows8 < n_rows8 ? c0 + kFlushRows8 : n_rows8;
+      uint32_t acc[4][4][4];
 #pragma unroll
-  for (int m = 0; m < 8; ++m)
+      for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int n = 0; n < 8; ++n) acc[m][n] = 0u;
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0u;
+      uint32_t x[4];
+      load_rows(src, ld_src, c0, x);
 
-  for (int64_t r0 = 0; r0 < n_rows8; r0 += kRows) {
-    __syncthreads();  // the previous stage's readers are done
-    for (int it = tid; it < kQuads * kBlock; it += kThreads) {
-      const int q = it / kBlock;
-      const int col = it % kBlock;
-      const uint8_t* src_u = up + (r0 + 4 * q) * ld_u + row0 + col;
-      const uint8_t* src_v = vp + (r0 + 4 * q) * ld_v + col0 + col;
-      uint32_t xr = 0u, xc = 0u;
+      for (int64_t r0 = c0; r0 < c1; r0 += kRows) {
+        const int s = static_cast<int>((r0 - c0) / kRows % kGroup);
+        __syncthreads();  // the previous stage's readers are done
+        if (s == 0) {
+          // word 4b + q of stage j: the limbs of patterns 8(r + k) + b,
+          // r = r0 + 16j + 4q; the four share r / kb (kb is a multiple of 16)
+          const int j = tid / kWords;
+          const int b = tid % kWords / 4;
+          const int64_t r = r0 + kRows * j + 4 * (tid % 4);
+          uint32_t word = 0u;
+          if (r < c1) {
+            const uint32_t* wp = w + (r / kb) * kb * 8 + static_cast<int64_t>(b) * kb + r % kb;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        xr |= static_cast<uint32_t>(src_u[k * ld_u]) << (8 * k);
-        xc |= static_cast<uint32_t>(src_v[k * ld_v]) << (8 * k);
-      }
-      sm.x[q][col] = xr;
-#pragma unroll
-      for (int b = 0; b < 8; ++b) sm.b[b][q][col] = (xc >> b) & 0x01010101u;
-    }
-    if (tid < 8 * kRows) {
-      const int b = tid / kRows;
-      const int64_t r = r0 + tid % kRows;
-      sm.w[b][tid % kRows] = w[(r / kb) * kb * 8 + static_cast<int64_t>(b) * kb + r % kb];
-    }
-    for (int l = 0; l < n_limbs; ++l) {
-      __syncthreads();  // staging (l == 0) or the previous limb's readers are done
-      for (int it = tid; it < kQuads * kBlock; it += kThreads) {
-        const int q = it / kBlock;
-        const int col = it % kBlock;
-        const uint32_t x = sm.x[q][col];
+            for (int k = 0; k < 4; ++k) word |= ((wp[k] >> (kLimbBits * l)) & 0x7Fu) << (8 * k);
+          }
+          sm.wl[j][tid % kWords] = word;
+          __syncthreads();
+        }
 #pragma unroll
         for (int b = 0; b < 8; ++b) {
-          uint32_t wl = 0u;
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            wl |= ((sm.w[b][4 * q + k] >> (kLimbBits * l)) & 0x7Fu) << (8 * k);
-          // 0/1 bytes times 0xFF give 0x00/0xFF byte masks without carries
-          sm.a[b][q][col] = (((x >> b) & 0x01010101u) * 0xFFu) & wl;
+          uint4 v = make_uint4((x[0] >> b) & 0x01010101u, (x[1] >> b) & 0x01010101u,
+                               (x[2] >> b) & 0x01010101u, (x[3] >> b) & 0x01010101u);
+          if (lhs) {
+            // 0/1 bytes times 0xFF give 0x00/0xFF byte masks without carries
+            const uint4 m = *reinterpret_cast<const uint4*>(&sm.wl[s][4 * b]);
+            v.x = (v.x * 0xFFu) & m.x;
+            v.y = (v.y * 0xFFu) & m.y;
+            v.z = (v.z * 0xFFu) & m.z;
+            v.w = (v.w * 0xFFu) & m.w;
+          }
+          *reinterpret_cast<uint4*>(dst + 4 * b) = v;
         }
-      }
-      __syncthreads();
-
-      uint32_t part[8][8];
-#pragma unroll
-      for (int m = 0; m < 8; ++m)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) part[m][n] = 0u;
-#pragma unroll 2
-      for (int b = 0; b < 8; ++b) {
-#pragma unroll
-        for (int q = 0; q < kQuads; ++q) {
-          const uint4 a0 = *reinterpret_cast<const uint4*>(&sm.a[b][q][ty * 4]);
-          const uint4 a1 = *reinterpret_cast<const uint4*>(&sm.a[b][q][64 + ty * 4]);
-          const uint4 b0 = *reinterpret_cast<const uint4*>(&sm.b[b][q][tx * 4]);
-          const uint4 b1 = *reinterpret_cast<const uint4*>(&sm.b[b][q][64 + tx * 4]);
-          const uint32_t av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const uint32_t bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int m = 0; m < 8; ++m)
-#pragma unroll
-            for (int n = 0; n < 8; ++n) part[m][n] = __dp4a(av[m], bv[n], part[m][n]);
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < 8; ++m)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) acc[m][n] += part[m][n] << (kLimbBits * l);
-    }
-  }
+        __syncthreads();
+        if (r0 + kRows < c1) load_rows(src, ld_src, r0 + kRows, x);
 
 #pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    const int64_t row = m < 4 ? ty * 4 + m : 64 + ty * 4 + (m - 4);
+        for (int ks = 0; ks < 4; ++ks) {
+          uint32_t af[4][4], bf[4][2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint4* dst = reinterpret_cast<uint4*>(out + row * ld + h * 64 + tx * 4);
-      uint4 v = *dst;
-      v.x += acc[m][h * 4 + 0];
-      v.y += acc[m][h * 4 + 1];
-      v.z += acc[m][h * 4 + 2];
-      v.w += acc[m][h * 4 + 3];
-      *dst = v;
+          for (int mt = 0; mt < 4; ++mt) ldsm_x4(a_frag + 16 * mt * kPitch + 8 * ks, af[mt]);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t r[4];
+            ldsm_x4(b_frag + 16 * np * kPitch + 8 * ks, r);
+            bf[2 * np][0] = r[0];
+            bf[2 * np][1] = r[1];
+            bf[2 * np + 1][0] = r[2];
+            bf[2 * np + 1][1] = r[3];
+          }
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma_s8::m16n8k32(acc[mt][nt], af[mt], bf[nt]);
+        }
+      }
+
+      // lane (g, t) holds rows g, g + 8 and columns 2t, 2t + 1 of each tile
+      const int g = lane / 4;
+      const int t = lane % 4;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t* row = out + (64 * wm + 16 * mt + 8 * h + g) * ld + 32 * wn + 2 * t;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            uint2* dst2 = reinterpret_cast<uint2*>(row + 8 * nt);
+            uint2 v = *dst2;
+            v.x += acc[mt][nt][2 * h] << (kLimbBits * l);
+            v.y += acc[mt][nt][2 * h + 1] << (kLimbBits * l);
+            *dst2 = v;
+          }
+        }
     }
   }
 }

@@ -3,9 +3,10 @@
 // exact mod 2^32, over the full rectangle (cells with column > row included).
 //
 // Replaces gram_u32_pk_rows of kmerdb_tpu/ops/pallas_gram.py with its int8
-// body _gram_pk_body_s8: the streamed large-collection all2all, where the
-// card holds one stripe of C and never the whole matrix.  Operands, the block
-// body and what bounds it: gram_pk.cuh.  c is uint32[R, s_pad] with R a
+// body _gram_pk_body_s8, here on Hopper's int8 tensor cores (mma.sync, two
+// blocks an SM): the streamed large-collection all2all, where the card holds
+// one stripe of C and never the whole matrix.  Operands, the block body and
+// what bounds it: gram_pk.cuh.  c is uint32[R, s_pad] with R a
 // multiple of `tile` and `tile` a multiple of 128; rt0 counts tiles of that
 // edge, as on the TPU, and arrives at run time, so every stripe shares one
 // kernel.
@@ -22,7 +23,7 @@
 
 namespace {
 
-__global__ void __launch_bounds__(gram_pk::kThreads)
+__global__ void __launch_bounds__(gram_pk::kThreads, gram_pk::kMinBlocks)
 gram_pk_rows_kernel(const uint8_t* __restrict__ bp, const uint32_t* __restrict__ w,
                     uint32_t* __restrict__ c, int64_t n_rows8, int64_t s_pad,
                     int64_t first_row, int n_limbs, int kb) {

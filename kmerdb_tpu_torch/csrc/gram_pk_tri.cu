@@ -1,8 +1,9 @@
 // Packed lower-triangle Gram for Hopper: C <- C + B^T diag(w) B, exact mod 2^32.
 //
 // Replaces gram_u32_pk_tri of kmerdb_tpu/ops/pallas_gram.py with its int8
-// body _gram_pk_body_s8 (the default all2all engine).  Operands, the block
-// body and what bounds it: gram_pk.cuh.  c is uint32[S, S], updated in place;
+// body _gram_pk_body_s8 (the default all2all engine), here on Hopper's int8
+// tensor cores (mma.sync, two blocks an SM).  Operands, the block body and
+// what bounds it: gram_pk.cuh.  c is uint32[S, S], updated in place;
 // S is a multiple of `tile`, itself a multiple of 128.
 //
 // Grid.  One block of 256 threads per 128 x 128 output block whose coarse
@@ -19,7 +20,7 @@
 
 namespace {
 
-__global__ void __launch_bounds__(gram_pk::kThreads)
+__global__ void __launch_bounds__(gram_pk::kThreads, gram_pk::kMinBlocks)
 gram_pk_tri_kernel(const uint8_t* __restrict__ bp, const uint32_t* __restrict__ w,
                    uint32_t* __restrict__ c, int64_t n_rows8, int64_t s_pad,
                    int n_limbs, int kb, int sub) {

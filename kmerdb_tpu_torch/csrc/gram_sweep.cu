@@ -12,7 +12,8 @@
 // does.  c is uint32[S, S] (int32 storage), updated in place; w uint32[P].
 //
 //   int8        C += Bi^T diag(w & 0x7F) Bj on packed uint8[P/8, S] operands:
-//               gram_pk.cuh's block at one limb, the production s8 body.
+//               gram_pk.cuh's block at one limb, the production s8 body
+//               (int8 tensor cores, mma.sync).
 //   bf16        C += Bi^T diag(w & 0xFF) Bj on packed operands unpacked to
 //               bf16, each product summed in f32 over a K block, the sum
 //               flushed into C as an integer at the end of the block
@@ -29,13 +30,15 @@
 //   dotonly_s8  C += Bi^T Bj on unpacked int8[P, S] operands, int32 per K
 //               block (dp4a), added into C mod 2^32.
 //
-// What bounds them.  Products: the int8 and s8 bodies run dp4a and the
-// bf16 bodies f32 FMA on the CUDA cores, far under the tensor cores' rates,
-// with every operand of the inner loop in shared memory and registers
-// (each thread owns an 8 x 8 block of outputs).  nodot moves bytes and
-// unpacks them; its only arithmetic is the add.  The variants exist to
-// measure these parts against each other, so each keeps the production
-// block's shape; the tensor-core Gram is later work.
+// What bounds them.  Products: the int8 body runs on the int8 tensor cores
+// (gram_pk.cuh: 8 warps of 64 x 32 outputs, its bounds there); the s8 body
+// runs dp4a and the bf16 bodies f32 FMA on the CUDA cores, far under the
+// tensor cores' rates, with every operand of the inner loop in shared
+// memory and registers (each thread owns an 8 x 8 block of outputs).
+// nodot moves bytes and unpacks them; its only arithmetic is the add.  The
+// variants exist to measure these parts against each other on the
+// production block's grid; dotonly_s8 and the bf16 bodies on the tensor
+// cores are later work.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -312,7 +315,7 @@ sweep_s8_kernel(const int8_t* __restrict__ bi, const int8_t* __restrict__ bj,
 }
 
 // int8: the production block (gram_pk.cuh) at one 7-bit limb, Bi != Bj.
-__global__ void __launch_bounds__(gram_pk::kThreads)
+__global__ void __launch_bounds__(gram_pk::kThreads, gram_pk::kMinBlocks)
 sweep_int8_kernel(const uint32_t* __restrict__ w, const uint8_t* __restrict__ bi,
                   const uint8_t* __restrict__ bj, uint32_t* __restrict__ c, int64_t p,
                   int64_t s, int kt, int sub) {

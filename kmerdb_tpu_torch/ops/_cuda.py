@@ -29,7 +29,7 @@ SOURCES = ("gram_pk_tri.cu", "gram_pk_rows.cu", "cross_pk.cu", "tril_tiles.cu",
 #: ops/sweep.py, all with the same arguments
 SWEEP_ENTRIES = ("int8", "bf16", "bf16_ns", "nodot", "dotonly", "dotonly_t",
                  "dotonly_s8")
-HEADERS = ("gram_pk.cuh", "tri.cuh")
+HEADERS = ("gram_pk.cuh", "mma_s8.cuh", "tri.cuh")
 #: sm_90a: the Hopper target (plain sm_90 refuses wgmma, which later
 #: kernels will use); -Xptxas -v logs registers, shared memory and spills
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

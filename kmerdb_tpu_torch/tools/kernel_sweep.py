@@ -4,7 +4,7 @@ The port of kmerdb_tpu's tools/kernel_sweep.py.  It times the variants of
 ops/sweep.py (csrc/gram_sweep.cu) on synthetic operands resident on the
 card, so that the triangle Gram's time splits into its parts:
 
-  int8        the production s8 body (unpack, weight limb, dp4a)
+  int8        the production s8 body (unpack, weight limb, mma.sync)
   bf16        unpack to bf16, weight scale, f32 product
   bf16_ns     the same without the weight scale
   nodot       the unpack alone

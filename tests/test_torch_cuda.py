@@ -30,13 +30,40 @@ def _u32(rng, shape):
                         dtype=np.uint64).astype(np.uint32)
 
 
-@pytest.mark.parametrize("S,rows,n_limbs,kt,tile", [
-    (256, 1024, 1, 256, 128), (640, 2048, 5, 1024, 128),
-    (1024, 2048, 3, 512, 512)])
-def test_gram_kernel_matches_plain(card, S, rows, n_limbs, kt, tile):
+def _ids(cases):
+    """The cases' ids, "-ones" after those with every bit and limb set."""
+    return ["-".join(map(str, c[:-1])) + ("-ones" if c[-1] else "")
+            for c in cases]
+
+
+def _packed(rng, shape, n_limbs, ones):
+    """(packed operand, its weights): random bits and distinct random
+    weights of n_limbs 7-bit limbs, or every bit set and every limb 127
+    (the top limb of 5 holds the 4 bits left of 32): the largest products
+    of the int8 body."""
+    if ones:
+        return (np.full(shape, 255, np.uint8),
+                np.full(8 * shape[0], (1 << min(32, 7 * n_limbs)) - 1,
+                        np.uint64).astype(np.uint32))
+    Bp = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    return Bp, _u32(rng, 8 * shape[0]) >> np.uint32(max(0, 32 - 7 * n_limbs))
+
+
+#: kt 128 (one stage a K block), S an odd multiple of 128, 2 and 4 limbs of
+#: distinct weights (the limb order), and every bit and limb set at 1, 2 and
+#: 5 limbs (the largest products; counts past 2^31)
+GRAM_CASES = [
+    (256, 1024, 1, 256, 128, False), (640, 2048, 5, 1024, 128, False),
+    (1024, 2048, 3, 512, 512, False), (384, 1024, 1, 128, 128, True),
+    (256, 2048, 2, 512, 256, True), (640, 1024, 5, 128, 128, True),
+    (384, 2048, 2, 128, 128, False), (640, 1024, 4, 256, 128, False)]
+
+
+@pytest.mark.parametrize("S,rows,n_limbs,kt,tile,ones", GRAM_CASES,
+                         ids=_ids(GRAM_CASES))
+def test_gram_kernel_matches_plain(card, S, rows, n_limbs, kt, tile, ones):
     rng = np.random.default_rng(S + n_limbs)
-    Bp = rng.integers(0, 256, size=(rows // 8, S), dtype=np.uint8)
-    w = _u32(rng, rows) >> np.uint32(max(0, 32 - 7 * n_limbs))
+    Bp, w = _packed(rng, (rows // 8, S), n_limbs, ones)
     Bt, wt, Ct = gram.from_jax_layout(Bp, gram.pk_weight_order(w, kt),
                                       _u32(rng, (S, S)), card)
     n = gram.gram_u32_pk_tri.launches
@@ -90,14 +117,23 @@ def test_all2all_device_matches_host_tier(card):
     assert device_a2a.last_stats["gram_s"] > 0
 
 
-@pytest.mark.parametrize("S,rows,n_limbs,kt,tile,nrt,rt0", [
-    (384, 1024, 1, 256, 128, 1, 2), (640, 1024, 3, 512, 128, 2, 3),
-    (768, 2048, 5, 1024, 256, 1, 1)])
+ROWS_CASES = [
+    (384, 1024, 1, 256, 128, 1, 2, False),
+    (640, 1024, 3, 512, 128, 2, 3, False),
+    (768, 2048, 5, 1024, 256, 1, 1, False),
+    (384, 1024, 1, 128, 128, 1, 1, True),
+    (640, 2048, 2, 256, 128, 2, 2, False),
+    (640, 1024, 5, 512, 128, 1, 4, True),
+    (384, 1024, 4, 128, 128, 3, 0, False),
+    (640, 2048, 2, 128, 128, 1, 0, True)]
+
+
+@pytest.mark.parametrize("S,rows,n_limbs,kt,tile,nrt,rt0,ones", ROWS_CASES,
+                         ids=_ids(ROWS_CASES))
 def test_gram_rows_kernel_matches_plain(card, S, rows, n_limbs, kt, tile,
-                                        nrt, rt0):
+                                        nrt, rt0, ones):
     rng = np.random.default_rng(S + n_limbs)
-    Bp = rng.integers(0, 256, size=(rows // 8, S), dtype=np.uint8)
-    w = _u32(rng, rows) >> np.uint32(max(0, 32 - 7 * n_limbs))
+    Bp, w = _packed(rng, (rows // 8, S), n_limbs, ones)
     Bt, wt, Ct = gram.from_jax_layout(Bp, gram.pk_weight_order(w, kt),
                                       _u32(rng, (nrt * tile, S)), card)
     n = gram.gram_u32_pk_rows.launches
@@ -216,16 +252,23 @@ def test_matmul_acc_kernel_matches_plain(card, Q, P, S, wide, n_limbs):
     assert torch.equal(C, plain)
 
 
-@pytest.mark.parametrize("S1,S2,rows,n_limbs,kt", [
-    (128, 256, 1024, 3, 512), (384, 128, 2048, 1, 256),
-    (256, 640, 1024, 5, 1024)])
-def test_cross_kernel_matches_plain(card, S1, S2, rows, n_limbs, kt):
+#: the last case sums 2^24 + 1024 patterns of weight 127: past the block's
+#: flush of 2^24 patterns, and every count past 2^31
+CROSS_CASES = [
+    (128, 256, 1024, 3, 512, False), (384, 128, 2048, 1, 256, False),
+    (256, 640, 1024, 5, 1024, False), (384, 640, 1024, 2, 128, False),
+    (640, 384, 2048, 4, 256, False), (128, 384, 1024, 1, 512, True),
+    (384, 128, 1024, 5, 128, True),
+    (128, 256, (1 << 24) + 1024, 1, 1024, True)]
+
+
+@pytest.mark.parametrize("S1,S2,rows,n_limbs,kt,ones", CROSS_CASES,
+                         ids=_ids(CROSS_CASES))
+def test_cross_kernel_matches_plain(card, S1, S2, rows, n_limbs, kt, ones):
     rng = np.random.default_rng(S1 + S2 + n_limbs)
-    Up = torch.from_numpy(rng.integers(0, 256, size=(rows // 8, S1),
-                                       dtype=np.uint8)).to(card)
-    Vp = torch.from_numpy(rng.integers(0, 256, size=(rows // 8, S2),
-                                       dtype=np.uint8)).to(card)
-    w = _u32(rng, rows) >> np.uint32(max(0, 32 - 7 * n_limbs))
+    Up, w = _packed(rng, (rows // 8, S1), n_limbs, ones)
+    Vp, _ = _packed(rng, (rows // 8, S2), n_limbs, ones)
+    Up, Vp = torch.from_numpy(Up).to(card), torch.from_numpy(Vp).to(card)
     w = torch.from_numpy(gram.pk_weight_order(w, kt).view(np.int32)).to(card)
     C = torch.from_numpy(_u32(rng, (S1, S2)).view(np.int32)).to(card)
     n = gram.cross_u32_pk.launches
@@ -524,29 +567,40 @@ def test_rows_sharded_on_two_cards_matches_host_tier(card, monkeypatch,
             assert st["rounds"] == 3 and st["gram_s"] > 0
 
 
-@pytest.mark.parametrize("kt,tile", [(512, 128), (1024, 256)])
+SWEEP_CASES = [(512, 128, 512, False), (1024, 256, 512, False),
+               (128, 128, 384, False), (128, 128, 640, True)]
+
+
+@pytest.mark.parametrize("kt,tile,S,ones", SWEEP_CASES,
+                         ids=[f"{kt}-{tile}" + (f"-{S}" if S != 512 else "")
+                              + ("-ones" if ones else "")
+                              for kt, tile, S, ones in SWEEP_CASES])
 @pytest.mark.parametrize("variant", ["bf16", "bf16_ns", "int8", "nodot",
                                      "dotonly", "dotonly_T", "dotonly_s8"])
-def test_sweep_kernels_match_plain(card, variant, kt, tile):
+def test_sweep_kernels_match_plain(card, variant, kt, tile, S, ones):
     """The kernel sweep's variants (csrc/gram_sweep.cu): Bi != Bj, weights
-    of 128, 256 and above (each body masks them), C seeded non-zero."""
+    of 128, 256 and above (each body masks them), C seeded non-zero; kt
+    128 at S 384, and every bit and weight bit set at S 640."""
     from kmerdb_tpu_torch.ops import sweep
-    S, P = 512, 4096
+    P = 4096
     rng = np.random.default_rng(kt + len(variant))
     dt = sweep.operand_dtype(variant)
     if variant in sweep.PACKED:
-        Bi, Bj = (torch.from_numpy(rng.integers(0, 256, size=(P // 8, S),
-                                                dtype=np.uint8)).to(card)
+        Bi, Bj = (torch.from_numpy(np.full((P // 8, S), 255, np.uint8) if ones
+                                   else rng.integers(0, 256, size=(P // 8, S),
+                                                     dtype=np.uint8)).to(card)
                   for _ in range(2))
     else:
-        Bi, Bj = (torch.from_numpy(rng.integers(0, 2, size=(P, S),
-                                                dtype=np.int8)).to(card)
+        Bi, Bj = (torch.from_numpy(np.ones((P, S), np.int8) if ones
+                                   else rng.integers(0, 2, size=(P, S),
+                                                     dtype=np.int8)).to(card)
                   for _ in range(2))
         if variant == "dotonly_T":
             Bi = Bi.T.contiguous()
         Bi, Bj = Bi.to(dt), Bj.to(dt)
-    w = _u32(rng, P)
-    w[:4] = (127, 128, 255, 256)
+    w = np.full(P, 0xFFFFFFFF, np.uint32) if ones else _u32(rng, P)
+    if not ones:
+        w[:4] = (127, 128, 255, 256)
     w = torch.from_numpy(w.view(np.int32)).to(card)
     C = torch.from_numpy(_u32(rng, (S, S)).view(np.int32)).to(card)
     kern = sweep.KERNELS[variant]
