@@ -9,9 +9,12 @@ one per case), each with its seconds:
 1. environment: torch, CUDA, and the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
 2. the kernel build (one nvcc per source, in parallel), with ptxas's
-   registers, shared memory and spill bytes of the packed Gram's four
-   kernels (gram_pk.cuh's block: the triangle, stripe and cross Grams and
-   the sweep's int8), which their records in the kernels' line carry;
+   registers, shared memory and spill bytes of the kernels on the int8
+   tensor cores, which their records in the kernels' line carry: the
+   packed Gram's four (gram_pk.cuh's block: the triangle, stripe and cross
+   Grams and the sweep's int8) and the unpacked Gram's three (gram_u8.cuh's
+   block: gram_u32_tri, gram_u32 and the sweep's dotonly_s8, whose shared
+   memory is dynamic: the library's kmerdb_gram_u8_smem_bytes);
 3. the 4,096-sample x 30 kbp scale corpus (the ICTV-scale stand-in of
    bench.py) and its database, built through the port's CLI entry point;
 4. the matrix route's kernels against their plain PyTorch versions on the
@@ -71,7 +74,10 @@ one per case), each with its seconds:
     versions, exactly, at its shapes on the 4,096-sample database: the
     first chunk of ``_scan_chunks`` (its incidence, P_pad, S_pad 4096),
     ``gram_u32_tri`` and ``gram_u32`` at the database's own limb count and
-    at 4 limbs with distinct random weights (255, 2^8, 2^31 and above),
+    at 4 limbs with distinct random weights (255, 2^8, 2^31 and above), and
+    at 4 limbs on an all-ones operand with every weight 2^32 - 1 (every
+    limb byte 255), with ``torch._int_mm(B.T, B)`` on the chunk's operand
+    timed as their yardstick (unweighted, one limb: no route calls it),
     ``matmul_u32`` at Q_pad 512 with uint8 H over every byte and uint32 H
     of 4 limbs at 2^31 and above;
 17. ``all2all`` on the scan tier through the CLI (KMERDB_A2A_DEVICE=1
@@ -142,8 +148,9 @@ PyTorch call that computes the same function where one exists
 (``library_ms``, else null), and its bound: the larger of its integer
 operations over the int8 peak (the bf16 peak for the sweep's bf16
 variants) and its bytes (inputs read once, outputs written once) over the
-memory rate, all of an H100 SXM at 700 W; the packed Gram's four also
-hold ptxas's ``registers`` and ``spill_bytes``.  The next-to-last line
+memory rate, all of an H100 SXM at 700 W; the kernels on the int8 tensor
+cores also hold ptxas's ``registers`` and ``spill_bytes`` and their
+``smem_bytes``.  The next-to-last line
 is a JSON object of the kernels, the last ``{"ok": true, "device":
 {...}}``.  A failure exits non-zero without them.
 The script and the port import nothing of JAX: an import blocker refuses
@@ -806,9 +813,11 @@ def _distinct_weights(rng, n: int) -> np.ndarray:
 def check_scan_kernels(torch, gram, intersect, db, rng) -> dict:
     """Phase 16: the scan tier's kernels == plain versions at its shapes on
     the first chunk of _scan_chunks: gram_u32_tri and gram_u32 at the
-    database's limb count (the bits above it dropped) and at 4 limbs,
-    matmul_u32 at Q_pad 512 with uint8 H over every byte and uint32 H of 4
-    limbs at 2^31 and above."""
+    database's limb count (the bits above it dropped) and at 4 limbs, and
+    on all ones with every weight 2^32 - 1 at 4 limbs, with torch._int_mm
+    of the chunk's operand as their library_ms; matmul_u32 at Q_pad 512
+    with uint8 H over every byte and uint32 H of 4 limbs at 2^31 and
+    above."""
     dev = torch.device("cuda")
     bounds, P_pad, S_pad = intersect._scan_chunks(db)
     B_np = np.zeros((P_pad, S_pad), np.int8)
@@ -822,27 +831,38 @@ def check_scan_kernels(torch, gram, intersect, db, rng) -> dict:
     nt = S_pad // gram.BLOCK
     shape = dict(P_pad=P_pad, S_pad=S_pad, chunks=len(bounds) - 1,
                  route_limbs=route_limbs)
+    # the yardstick: cuBLAS's int8 square of the same operand (unweighted,
+    # one limb; the rows of B.T made contiguous once, outside the time)
+    Bt = B.T.contiguous()
+    library_ms = _cuda_ms(torch, lambda: torch._int_mm(Bt, B), 5)
+    del Bt
+    ones = torch.ones_like(B), torch.full_like(w, -1)
     out = {"gram_u32_tri": [], "gram_u32": [], "matmul_u32": []}
-    for n_limbs in sorted({route_limbs, 4}):
+    cases = [("random", n) for n in sorted({route_limbs, 4})] \
+        + [("ones", 4)]
+    for operands, n_limbs in cases:
+        Bc, wc = (B, w) if operands == "random" else ones
         for name, frac in (("gram_u32_tri", (nt + 1) / (2 * nt)),
                            ("gram_u32", 1.0)):
             kern, plain = getattr(gram, name), getattr(gram, name + "_plain")
-            Ck = kern(B, w, n_limbs=n_limbs)
-            Cp = plain(B, w, n_limbs=n_limbs)
+            Ck = kern(Bc, wc, n_limbs=n_limbs)
+            Cp = plain(Bc, wc, n_limbs=n_limbs)
             torch.cuda.synchronize()
             err = _err(torch, Ck, Cp)
             _check(torch.equal(Ck, Cp) and bool(Ck.any()),
-                   f"{name} differs from its plain version (n_limbs="
-                   f"{n_limbs}, max_abs_err={err})")
+                   f"{name} differs from its plain version ({operands}, "
+                   f"n_limbs={n_limbs}, max_abs_err={err})")
             del Ck, Cp
-            ms = _cuda_ms(torch, lambda: kern(B, w, n_limbs=n_limbs), 5)
-            plain_ms = _cuda_ms(torch, lambda: plain(B, w, n_limbs=n_limbs),
-                                1)
+            ms = _cuda_ms(torch, lambda: kern(Bc, wc, n_limbs=n_limbs), 5)
+            plain_ms = _cuda_ms(torch, lambda: plain(Bc, wc,
+                                                     n_limbs=n_limbs), 1)
             ops = 2.0 * P_pad * S_pad * S_pad * frac * n_limbs
             out[name].append(dict(
-                n_limbs=n_limbs, **shape, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, tops=ops / ms / 1e9, ops=ops,
+                operands=operands, n_limbs=n_limbs, **shape,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, tops=ops / ms / 1e9, ops=ops,
                 bytes=P_pad * (S_pad + 4) + 4 * S_pad * S_pad))
+    del ones
     for h_type, n_limbs in (("uint8", 1), ("uint32", 4)):
         if n_limbs == 1:
             H = rng.integers(0, 256, size=(SCAN_Q_PAD, P_pad), dtype=np.uint8)
@@ -1315,32 +1335,43 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
     return {"variants": res, "on_db": rows, "int8_ratio": ratio}
 
 
-#: the packed Gram's kernels (gram_pk.cuh's block) by their records' names
-PK_KERNELS = {"gram_pk_tri": "gram_pk_tri_kernel",
-              "gram_pk_rows": "gram_pk_rows_kernel",
-              "cross_u32_pk": "cross_pk_kernel",
-              "sweep_int8": "sweep_int8_kernel"}
+#: the kernels on the int8 tensor cores by their records' names, with a
+#: part of their (mangled) names: the packed Gram's (gram_pk.cuh's block)
+#: and the unpacked Gram's (gram_u8.cuh's block)
+MMA_KERNELS = {"gram_pk_tri": "gram_pk_tri_kernel",
+               "gram_pk_rows": "gram_pk_rows_kernel",
+               "cross_u32_pk": "cross_pk_kernel",
+               "sweep_int8": "sweep_int8_kernel",
+               "gram_u32_tri": "gram_u32_kernelILb1E",
+               "gram_u32": "gram_u32_kernelILb0E",
+               "sweep_dotonly_s8": "sweep_s8_kernel"}
+#: those of gram_u8.cuh's block, whose shared memory is dynamic
+U8_KERNELS = ("gram_u32_tri", "gram_u32", "sweep_dotonly_s8")
 
 
-def _pk_resources(log: str) -> dict:
-    """PK_KERNELS' registers, spill bytes (stores + loads) and shared memory
-    by record name, from nvcc's -Xptxas -v output; fails if one is
+def _mma_resources(log: str, u8_smem: int) -> dict:
+    """MMA_KERNELS' registers, spill bytes (stores + loads) and shared
+    memory by record name, from nvcc's -Xptxas -v output (static shared
+    memory; U8_KERNELS add their `u8_smem` dynamic bytes); fails if one is
     missing."""
     out, rec = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            rec = next((r for r, k in PK_KERNELS.items() if k in m[1]), None)
+            rec = next((r for r, k in MMA_KERNELS.items() if k in m[1]), None)
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           ln)
         if rec and spill:
             out[rec] = dict(spill_bytes=int(spill[1]) + int(spill[2]))
-        regs = re.search(r"Used (\d+) registers.* (\d+) bytes smem", ln)
+        regs = re.search(r"Used (\d+) registers", ln)
         if rec in out and regs:
-            out[rec].update(registers=int(regs[1]), smem_bytes=int(regs[2]))
-    _check(all(len(out.get(r, {})) == 3 for r in PK_KERNELS),
-           f"ptxas gave no resources for some of {PK_KERNELS}: {out}")
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[rec].update(registers=int(regs[1]),
+                            smem_bytes=(int(smem[1]) if smem else 0)
+                            + (u8_smem if rec in U8_KERNELS else 0))
+    _check(all(len(out.get(r, {})) == 3 for r in MMA_KERNELS),
+           f"ptxas gave no resources for some of {MMA_KERNELS}: {out}")
     return out
 
 
@@ -1425,9 +1456,10 @@ def run(workdir: str) -> list:
         f"{os.path.relpath(_cuda.library_path())}; ptxas: " + "; ".join(
             ln.split("info    : ")[1] for ln in _cuda.build_log().splitlines()
             if "registers" in ln))
-    pk_res = _pk_resources(_cuda.build_log())
-    say("[2 build] packed Gram block (gram_pk.cuh): " + "; ".join(
-        f"{rec} {_fmt(r)}" for rec, r in pk_res.items()))
+    mma_res = _mma_resources(_cuda.build_log(),
+                             _cuda.lib().kmerdb_gram_u8_smem_bytes())
+    say("[2 build] int8 tensor-core blocks (gram_pk.cuh, gram_u8.cuh): "
+        + "; ".join(f"{rec} {_fmt(r)}" for rec, r in mma_res.items()))
 
     t = time.perf_counter()
     db_path, db, t_corpus, t_build, scale_list = _corpus(
@@ -1739,9 +1771,8 @@ def run(workdir: str) -> list:
           "library_ms": r["library_ms"]}
          for v, r in sw["variants"].items()]
     for k in kernels:
-        if k["name"] in pk_res:
-            r = pk_res[k["name"]]
-            k.update(registers=r["registers"], spill_bytes=r["spill_bytes"])
+        if k["name"] in mma_res:
+            k.update(mma_res[k["name"]])
     return kernels
 
 

@@ -27,24 +27,27 @@
 //               block, flushed as in bf16 (exact for integer operands whose
 //               block sums stay below 2^24, the tool's 0/1 among them).
 //   dotonly_t   the same with Bi laid out bf16[S, P].
-//   dotonly_s8  C += Bi^T Bj on unpacked int8[P, S] operands, int32 per K
-//               block (dp4a), added into C mod 2^32.
+//   dotonly_s8  C += Bi^T Bj on unpacked int8[P, S] operands: gram_u8.cuh's
+//               block in its signed form (int8 tensor cores, mma.sync
+//               .s8.s8), its exact s32 sums added into C mod 2^32 every
+//               2^16 patterns, which equals adding each K block's sum.
 //
-// What bounds them.  Products: the int8 body runs on the int8 tensor cores
-// (gram_pk.cuh: 8 warps of 64 x 32 outputs, its bounds there); the s8 body
-// runs dp4a and the bf16 bodies f32 FMA on the CUDA cores, far under the
-// tensor cores' rates, with every operand of the inner loop in shared
-// memory and registers (each thread owns an 8 x 8 block of outputs).
-// nodot moves bytes and unpacks them; its only arithmetic is the add.  The
-// variants exist to measure these parts against each other on the
-// production block's grid; dotonly_s8 and the bf16 bodies on the tensor
-// cores are later work.
+// What bounds them.  Products: the int8 and dotonly_s8 bodies run on the
+// int8 tensor cores (gram_pk.cuh, gram_u8.cuh: 8 warps of 64 x 32 outputs,
+// their bounds there); the bf16 bodies run f32 FMA on the CUDA cores, far
+// under the tensor cores' rates, with every operand of the inner loop in
+// shared memory and registers (each thread owns an 8 x 8 block of
+// outputs).  nodot moves bytes and unpacks them; its only arithmetic is the
+// add.  The variants exist to measure these parts against each other on
+// the production block's grid; the bf16 bodies on the tensor cores are
+// later work.
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "gram_pk.cuh"
+#include "gram_u8.cuh"
 #include "tri.cuh"
 
 namespace {
@@ -245,73 +248,16 @@ sweep_bf16_kernel(const uint32_t* __restrict__ w, const void* __restrict__ bi_,
   add_out(acc, c + k.row0 * s + k.col0, s, ty, tx);
 }
 
-struct SmemS8 {
-  __align__(16) uint32_t a[kStage / 4][kBlock];  // 4 int8 rows a word
-  __align__(16) uint32_t b[kStage / 4][kBlock];
-};
-
-// dotonly_s8: int8 rows k0 .. k0 + 63 staged four to a dp4a word.
-__global__ void __launch_bounds__(kThreads)
+// dotonly_s8: gram_u8.cuh's body in its signed form (mma.sync .s8.s8, no
+// weights), Bi != Bj, every flush added into C.
+__global__ void __launch_bounds__(gram_u8::kThreads, gram_u8::kMinBlocks)
 sweep_s8_kernel(const int8_t* __restrict__ bi, const int8_t* __restrict__ bj,
-                uint32_t* __restrict__ c, int64_t p, int64_t s, int kt, int sub) {
-  __shared__ SmemS8 sm;
+                uint32_t* __restrict__ c, int64_t p, int64_t s, int sub) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const Coords k = coords(sub);
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-
-  uint32_t acc[8][8];
-#pragma unroll
-  for (int m = 0; m < 8; ++m)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) acc[m][n] = 0u;
-
-  for (int64_t kblk = 0; kblk < p; kblk += kt) {
-    int part[8][8];
-#pragma unroll
-    for (int m = 0; m < 8; ++m)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) part[m][n] = 0;
-    for (int st = 0; st < kt; st += kStage) {
-      __syncthreads();
-      for (int it = tid; it < (kStage / 4) * kBlock; it += kThreads) {
-        const int q = it / kBlock;
-        const int col = it % kBlock;
-        const int64_t r = kblk + st + 4 * q;
-        uint32_t xa = 0u, xb = 0u;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          xa |= static_cast<uint32_t>(static_cast<uint8_t>(bi[(r + e) * s + k.row0 + col])) << (8 * e);
-          xb |= static_cast<uint32_t>(static_cast<uint8_t>(bj[(r + e) * s + k.col0 + col])) << (8 * e);
-        }
-        sm.a[q][col] = xa;
-        sm.b[q][col] = xb;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int q = 0; q < kStage / 4; ++q) {
-        const uint4 a0 = *reinterpret_cast<const uint4*>(&sm.a[q][ty * 4]);
-        const uint4 a1 = *reinterpret_cast<const uint4*>(&sm.a[q][64 + ty * 4]);
-        const uint4 b0 = *reinterpret_cast<const uint4*>(&sm.b[q][tx * 4]);
-        const uint4 b1 = *reinterpret_cast<const uint4*>(&sm.b[q][64 + tx * 4]);
-        const int av[8] = {static_cast<int>(a0.x), static_cast<int>(a0.y), static_cast<int>(a0.z),
-                           static_cast<int>(a0.w), static_cast<int>(a1.x), static_cast<int>(a1.y),
-                           static_cast<int>(a1.z), static_cast<int>(a1.w)};
-        const int bv[8] = {static_cast<int>(b0.x), static_cast<int>(b0.y), static_cast<int>(b0.z),
-                           static_cast<int>(b0.w), static_cast<int>(b1.x), static_cast<int>(b1.y),
-                           static_cast<int>(b1.z), static_cast<int>(b1.w)};
-#pragma unroll
-        for (int m = 0; m < 8; ++m)
-#pragma unroll
-          for (int n = 0; n < 8; ++n) part[m][n] = __dp4a(av[m], bv[n], part[m][n]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < 8; ++m)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) acc[m][n] += static_cast<uint32_t>(part[m][n]);
-  }
-  add_out(acc, c + k.row0 * s + k.col0, s, ty, tx);
+  gram_u8::block<false>(smem, reinterpret_cast<const uint8_t*>(bi) + k.row0,
+                        reinterpret_cast<const uint8_t*>(bj) + k.col0, s, nullptr, p, 1,
+                        gram_u8::kFlushS8, c + k.row0 * s + k.col0, s);
 }
 
 // int8: the production block (gram_pk.cuh) at one 7-bit limb, Bi != Bj.
@@ -387,12 +333,15 @@ extern "C" int kmerdb_sweep_dotonly_t(const void* w, const void* bi, const void*
 
 extern "C" int kmerdb_sweep_dotonly_s8(const void* w, const void* bi, const void* bj, void* c,
                                        int64_t p, int64_t s, int kt, int tile, void* stream) {
-  (void)w;  // the unpacked product takes no weights
+  (void)w;   // the unpacked product takes no weights
+  (void)kt;  // exact sums flushed every kFlushS8 patterns equal the K blocks' sum mod 2^32
   const int64_t blocks = n_blocks(s, tile);
   if (blocks == 0 || p == 0) return 0;
-  sweep_s8_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+  const cudaError_t err = gram_u8::allow_smem(sweep_s8_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sweep_s8_kernel<<<static_cast<unsigned>(blocks), gram_u8::kThreads, gram_u8::kSmemBytes,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(bi), static_cast<const int8_t*>(bj), static_cast<uint32_t*>(c), p,
-      s, kt, tile / kBlock);
+      s, tile / kBlock);
   return static_cast<int>(cudaGetLastError());
 }

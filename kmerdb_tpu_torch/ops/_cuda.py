@@ -29,7 +29,7 @@ SOURCES = ("gram_pk_tri.cu", "gram_pk_rows.cu", "cross_pk.cu", "tril_tiles.cu",
 #: ops/sweep.py, all with the same arguments
 SWEEP_ENTRIES = ("int8", "bf16", "bf16_ns", "nodot", "dotonly", "dotonly_t",
                  "dotonly_s8")
-HEADERS = ("gram_pk.cuh", "mma_s8.cuh", "tri.cuh")
+HEADERS = ("gram_pk.cuh", "gram_u8.cuh", "mma_s8.cuh", "tri.cuh")
 #: sm_90a: the Hopper target (plain sm_90 refuses wgmma, which later
 #: kernels will use); -Xptxas -v logs registers, shared memory and spills
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -120,6 +120,7 @@ def lib() -> ctypes.CDLL:
             ("kmerdb_matmul_acc", [vp, i32, vp, vp, i64, i64, i64, i32, vp]),
             ("kmerdb_matmul_u32", [vp, i32, vp, vp, i64, i64, i64, i32, vp]),
             ("kmerdb_gram_u32", [vp, vp, vp, i64, i64, i32, i32, vp]),
+            ("kmerdb_gram_u8_smem_bytes", []),
             ("kmerdb_tril_tiles", [vp, vp, i64, i32, vp]),
             ("kmerdb_gather_tiles", [vp, vp, vp, vp, i64, i64, i32, vp]),
             ("kmerdb_cast_rows", [vp, vp, i64, vp]),

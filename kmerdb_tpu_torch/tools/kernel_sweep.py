@@ -10,7 +10,7 @@ card, so that the triangle Gram's time splits into its parts:
   nodot       the unpack alone
   dotonly     pre-unpacked bf16 operands, the product alone
   dotonly_T   the same with Bi laid out [S, P]
-  dotonly_s8  pre-unpacked int8 operands, the dp4a product alone
+  dotonly_s8  pre-unpacked int8 operands, the product alone (mma.sync)
 
 and, with --on-db, sweeps the production kernel's geometry (kt, tile) on a
 database's own packed groups (ops/device_a2a.kernel_bench under

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from kmerdb_tpu_torch.models.database import KmerPatternDb
-from kmerdb_tpu_torch.ops import device_a2a, gram
+from kmerdb_tpu_torch.ops import device_a2a, gram, sweep
 from kmerdb_tpu_torch.utils import native
 
 pytestmark = pytest.mark.cuda
@@ -335,23 +335,47 @@ def test_query_and_cross_tiers_match_host_tiers(card, monkeypatch):
             np.testing.assert_array_equal(streamed[i][j], d2d[i, j])
 
 
-@pytest.mark.parametrize("P,S,n_limbs,triangle", [
-    (512, 384, 1, True), (384, 256, 4, False), (1024, 640, 3, True),
-    (256, 128, 2, False)])
-def test_gram_u32_kernels_match_plain(card, P, S, n_limbs, triangle):
+GRAM_U32_CASES = [
+    (512, 384, 1, True, "random"), (384, 256, 4, False, "random"),
+    (1024, 640, 3, True, "random"), (256, 128, 2, False, "random"),
+    (512, 384, 1, True, "ones"), (384, 256, 4, False, "ones"),
+    ((1 << 23) + (1 << 16), 128, 1, True, "long")]
+
+
+@pytest.mark.parametrize(
+    "P,S,n_limbs,triangle,operands", GRAM_U32_CASES,
+    ids=[f"{P}-{S}-{n}-{tri}" + ("" if op == "random" else f"-{op}")
+         for P, S, n, tri, op in GRAM_U32_CASES])
+def test_gram_u32_kernels_match_plain(card, P, S, n_limbs, triangle,
+                                      operands):
     """Weights over every bit with 255, 2^8 and 2^31 among them: the limbs
-    above n_limbs are dropped, limb bytes reach 255 (the unsigned dp4a)."""
+    above n_limbs are dropped, limb bytes reach 255 (read as .u8).  "ones":
+    B all ones and every weight 2^32 - 1, so every limb byte is 255, the
+    largest products.  "long": 2^23 + 2^16 patterns of ones at weight
+    2^32 - 1 and one 8-bit limb, whose s32 sum (255 per pattern) would pass
+    2^31 without the flush every 2^23 patterns; every cell is P * 255 mod
+    2^32 (the plain version is not run at this 1.08 GB size)."""
     rng = np.random.default_rng(P + S + n_limbs)
-    B = torch.from_numpy((rng.random((P, S)) < 0.3).astype(np.int8)).to(card)
-    w = _u32(rng, P)
-    w[:3] = (255, 256, 1 << 31)
-    w = torch.from_numpy(w.view(np.int32)).to(card)
     kern = gram.gram_u32_tri if triangle else gram.gram_u32
     plain = gram.gram_u32_tri_plain if triangle else gram.gram_u32_plain
+    if operands == "random":
+        B = torch.from_numpy((rng.random((P, S)) < 0.3).astype(np.int8)) \
+            .to(card)
+        w = _u32(rng, P)
+        w[:3] = (255, 256, 1 << 31)
+        w = torch.from_numpy(w.view(np.int32)).to(card)
+    else:
+        B = torch.ones((P, S), dtype=torch.int8, device=card)
+        w = torch.full((P,), -1, dtype=torch.int32, device=card)
     n = kern.launches
     got = kern(B, w, n_limbs=n_limbs)
     torch.cuda.synchronize()
     assert kern.launches == n + 1
+    if operands == "long":
+        assert P * 255 > 1 << 31
+        want = int(np.uint32(P * 255 % (1 << 32)).view(np.int32))
+        assert torch.equal(got, torch.full_like(got, want))
+        return
     assert torch.equal(got, plain(B, w, n_limbs=n_limbs)) and bool(got.any())
 
 
@@ -567,29 +591,39 @@ def test_rows_sharded_on_two_cards_matches_host_tier(card, monkeypatch,
             assert st["rounds"] == 3 and st["gram_s"] > 0
 
 
-SWEEP_CASES = [(512, 128, 512, False), (1024, 256, 512, False),
-               (128, 128, 384, False), (128, 128, 640, True)]
+SWEEP_CASES = [(512, 128, 512, "random"), (1024, 256, 512, "random"),
+               (128, 128, 384, "random"), (128, 128, 640, "ones")]
+#: every variant at every case, and dotonly_s8 on signed operands
+SWEEP_PARAMS = [(v, *case) for case in SWEEP_CASES for v in sweep.VARIANTS] \
+    + [("dotonly_s8", 512, 128, 512, "signed"),
+       ("dotonly_s8", 1024, 256, 768, "signed")]
 
 
-@pytest.mark.parametrize("kt,tile,S,ones", SWEEP_CASES,
-                         ids=[f"{kt}-{tile}" + (f"-{S}" if S != 512 else "")
-                              + ("-ones" if ones else "")
-                              for kt, tile, S, ones in SWEEP_CASES])
-@pytest.mark.parametrize("variant", ["bf16", "bf16_ns", "int8", "nodot",
-                                     "dotonly", "dotonly_T", "dotonly_s8"])
-def test_sweep_kernels_match_plain(card, variant, kt, tile, S, ones):
+@pytest.mark.parametrize(
+    "variant,kt,tile,S,operands", SWEEP_PARAMS,
+    ids=[f"{v}-{kt}-{tile}" + (f"-{S}" if S != 512 else "")
+         + ("" if op == "random" else f"-{op}")
+         for v, kt, tile, S, op in SWEEP_PARAMS])
+def test_sweep_kernels_match_plain(card, variant, kt, tile, S, operands):
     """The kernel sweep's variants (csrc/gram_sweep.cu): Bi != Bj, weights
     of 128, 256 and above (each body masks them), C seeded non-zero; kt
-    128 at S 384, and every bit and weight bit set at S 640."""
-    from kmerdb_tpu_torch.ops import sweep
+    128 at S 384, and every bit and weight bit set at S 640; dotonly_s8
+    over the whole of -128..127 (0/1 operands cannot tell .s8 from .u8),
+    -128 * -128 among the products."""
     P = 4096
     rng = np.random.default_rng(kt + len(variant))
     dt = sweep.operand_dtype(variant)
+    ones = operands == "ones"
     if variant in sweep.PACKED:
         Bi, Bj = (torch.from_numpy(np.full((P // 8, S), 255, np.uint8) if ones
                                    else rng.integers(0, 256, size=(P // 8, S),
                                                      dtype=np.uint8)).to(card)
                   for _ in range(2))
+    elif operands == "signed":
+        Bi, Bj = (rng.integers(-128, 128, size=(P, S), dtype=np.int8)
+                  for _ in range(2))
+        Bi[:2, :2] = Bj[:2, :2] = -128
+        Bi, Bj = torch.from_numpy(Bi).to(card), torch.from_numpy(Bj).to(card)
     else:
         Bi, Bj = (torch.from_numpy(np.ones((P, S), np.int8) if ones
                                    else rng.integers(0, 2, size=(P, S),

@@ -46,8 +46,14 @@ def jax_sweep():
     return mod
 
 
-def _operands(variant, rng):
-    """(jax operands, port operands) of one variant: Bi != Bj."""
+def _operands(variant, rng, signed=False):
+    """(jax operands, port operands) of one variant: Bi != Bj; with
+    `signed`, dotonly_s8's int8 over the whole of -128..127."""
+    if signed:
+        Ri, Rj = (rng.integers(-128, 128, size=(P, S), dtype=np.int8)
+                  for _ in range(2))
+        Ri[:2, :2] = Rj[:2, :2] = -128
+        return (Ri, Rj), (torch.from_numpy(Ri), torch.from_numpy(Rj))
     if variant in sweep.PACKED:
         Bi, Bj = (rng.integers(0, 256, size=(P // 8, S), dtype=np.uint8)
                   for _ in range(2))
@@ -62,15 +68,23 @@ def _operands(variant, rng):
             tuple(torch.from_numpy(R).to(torch.bfloat16) for R in (Ri, Rj)))
 
 
-@pytest.mark.parametrize("kt,tile", [(512, 128), (1024, 256)])
-@pytest.mark.parametrize("variant", sweep.VARIANTS)
-def test_variant_matches_jax_interpreted(jax_sweep, variant, kt, tile):
+#: every variant at two geometries, and dotonly_s8 on signed operands
+VARIANT_CASES = [(v, kt, tile, False) for kt, tile in ((512, 128), (1024, 256))
+                 for v in sweep.VARIANTS] + [("dotonly_s8", 512, 128, True)]
+
+
+@pytest.mark.parametrize(
+    "variant,kt,tile,signed", VARIANT_CASES,
+    ids=[f"{v}-{kt}-{tile}" + ("-signed" if sg else "")
+         for v, kt, tile, sg in VARIANT_CASES])
+def test_variant_matches_jax_interpreted(jax_sweep, variant, kt, tile,
+                                         signed):
     jnp = jax_sweep.jnp
     rng = np.random.default_rng(kt + sweep.VARIANTS.index(variant))
     w = rng.integers(0, 1 << 32, size=(P, 1), dtype=np.uint64) \
         .astype(np.uint32)
     w[:6, 0] = (127, 128, 255, 256, 257, 0xFFFFFFFF)  # each body masks w
-    (ji, jj), (ti, tj) = _operands(variant, rng)
+    (ji, jj), (ti, tj) = _operands(variant, rng, signed)
     C0 = rng.integers(0, 1 << 32, size=(S, S), dtype=np.uint64) \
         .astype(np.uint32)
 
@@ -232,3 +246,29 @@ def test_tool_without_cuda_exits_nonzero(capsys):
         pytest.skip("a CUDA card is present")
     assert kernel_sweep.main(["int8"]) != 0
     assert "CUDA" in capsys.readouterr().err
+
+
+def test_rate_tool_without_cuda_exits_nonzero(capsys):
+    from kmerdb_tpu_torch.tools import gram_u8_rate
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    assert gram_u8_rate.main([]) == 1
+    assert "CUDA" in capsys.readouterr().err
+    assert gram_u8_rate.main(["--S"]) == 2
+
+
+def test_rate_tool_reads_the_block_kernels_from_ptxas():
+    from kmerdb_tpu_torch.tools import gram_u8_rate
+    names = ("_ZN12_GLOBAL__N_115gram_u32_kernelILb1EEEvPKhPKjPjlli",
+             "_ZN12_GLOBAL__N_118gram_pk_tri_kernelEPKhPKjPjlliii",
+             "_ZN12_GLOBAL__N_115sweep_s8_kernelEPKaS1_Pjlli")
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{n}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {n}\n"
+        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {r} registers, used 1 barriers\n"
+        for n, r in zip(names, (121, 118, 120)))
+    got = gram_u8_rate._ptxas(log)
+    assert [ln for ln in got if not ln.startswith(" ")] == [names[0], names[2]]
+    assert sum("Used 121 registers" in ln for ln in got) == 1
+    assert not any("118" in ln for ln in got)
