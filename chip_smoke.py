@@ -12,9 +12,11 @@ one per case), each with its seconds:
    registers, shared memory and spill bytes of the kernels on the int8
    tensor cores, which their records in the kernels' line carry: the
    packed Gram's four (gram_pk.cuh's block: the triangle, stripe and cross
-   Grams and the sweep's int8) and the unpacked Gram's three (gram_u8.cuh's
-   block: gram_u32_tri, gram_u32 and the sweep's dotonly_s8, whose shared
-   memory is dynamic: the library's kmerdb_gram_u8_smem_bytes);
+   Grams and the sweep's int8) and the unpacked block's four (gram_u8.cuh:
+   gram_u32_tri, gram_u32, the sweep's dotonly_s8 and the query
+   contraction's matmul_acc_kernel, the records matmul_u32_acc and
+   matmul_u32, whose shared memory is dynamic: the library's
+   kmerdb_gram_u8_smem_bytes);
 3. the 4,096-sample x 30 kbp scale corpus (the ICTV-scale stand-in of
    bench.py) and its database, built through the port's CLI entry point;
 4. the matrix route's kernels against their plain PyTorch versions on the
@@ -34,7 +36,9 @@ one per case), each with its seconds:
 8. the streamed route's kernels against their plain versions on the card,
    exactly, at its shapes (the default 1,536-row stripe at S_pad 20,480,
    a stripe other than the first, the database's first light group; the
-   cases of phase 4), with the times of both;
+   cases of phase 4), with the times of both; then ``cast_rows`` and its
+   library call ``C.to(torch.int16)`` on the group's stripe, timed in turns
+   over 21 rounds (medians, spreads, the rounds the kernel won);
 9. the streamed route through the CLI with no route setting, dense and
    ``-sparse -min num-kmers:27000``, launch counters reset before each
    call and read after it, with ``last_stats`` and peak device memory;
@@ -46,11 +50,14 @@ one per case), each with its seconds:
     with the times of both: ``matmul_u32_acc`` at new2all's shapes on the
     4,096-sample database (Q_pad 512, S_pad 4096, the P_pad of the first
     m2a_prepare chunk; uint8 H over 0..255, and uint32 H of 4 limbs at
-    2^31 and above, C seeded non-zero), ``cross_u32_pk`` at the parts
-    grid's shape (weight 1, 1,024 x 1,024), at a db2db shape (1,024 x
-    640, distinct weights past 2^14, a K block other than the default),
-    at that shape with two limbs of distinct weights, and at the grid's
-    shape with every bit set and both limbs 127;
+    2^31 and above, C seeded non-zero; then Q_pad 128, the 76-query flush
+    and a mesh slot, on a split-K grid), each with its ``k_splits`` and
+    blocks and ``torch._int_mm`` of int8 operands of its shape as a
+    yardstick (signed, one limb: not the same function); ``cross_u32_pk``
+    at the parts grid's shape (weight 1, 1,024 x 1,024), at a db2db shape
+    (1,024 x 640, distinct weights past 2^14, a K block other than the
+    default), at that shape with two limbs of distinct weights, and at the
+    grid's shape with every bit set and both limbs 127;
 12. ``new2all`` through the CLI on the device tier (KMERDB_N2A_DEVICE=1):
     the database of phase 3 against the first 1,100 genomes of its own
     list (flushes of 512, 512 and 76 queries), dense and ``-sparse -min
@@ -79,7 +86,8 @@ one per case), each with its seconds:
     limb byte 255), with ``torch._int_mm(B.T, B)`` on the chunk's operand
     timed as their yardstick (unweighted, one limb: no route calls it),
     ``matmul_u32`` at Q_pad 512 with uint8 H over every byte and uint32 H
-    of 4 limbs at 2^31 and above;
+    of 4 limbs at 2^31 and above, with its ``k_splits`` and
+    ``torch._int_mm`` of its shape as the yardstick;
 17. ``all2all`` on the scan tier through the CLI (KMERDB_A2A_DEVICE=1
     KMERDB_A2A_PALLAS=0): one ``gram_u32_tri`` launch a chunk and no
     packed kernel, its ``scan_stats``, the CSV byte-equal to phase 6's
@@ -150,7 +158,7 @@ operations over the int8 peak (the bf16 peak for the sweep's bf16
 variants) and its bytes (inputs read once, outputs written once) over the
 memory rate, all of an H100 SXM at 700 W; the kernels on the int8 tensor
 cores also hold ptxas's ``registers`` and ``spill_bytes`` and their
-``smem_bytes``.  The next-to-last line
+``smem_bytes``; the query contraction's ``library_ms`` is its yardstick.  The next-to-last line
 is a JSON object of the kernels, the last ``{"ok": true, "device":
 {...}}``.  A failure exits non-zero without them.
 The script and the port import nothing of JAX: an import blocker refuses
@@ -186,6 +194,10 @@ N_QUERIES = 1100
 PART_SIZE = 1024
 #: phase 16: matmul_u32's query rows, new2all's flush
 SCAN_Q_PAD = 512
+#: the query contraction's yardstick (phases 11 and 16)
+INT_MM = "torch._int_mm on int8 operands of the same shapes: signed, one limb"
+#: phase 8: rounds of cast_rows and its library call timed in turns
+CAST_ROUNDS = 21
 #: phases 20 and 21: slots of the mesh, all on the one card
 MESH_SLOTS = 4
 #: an H100 SXM's dense int8 tensor-core peak and memory rate (NVIDIA's data
@@ -419,6 +431,20 @@ def check_stripe_kernels(torch, gram, device_a2a, db, rng) -> dict:
             library_equal=torch.equal(C.to(torch.int16), ck),
             gb_per_s=6 * C.numel() / ms / 1e6, ops=0.0,
             bytes=6 * C.numel()))
+    # kernel and library call in turns, which goes first alternating:
+    # whether the kernel is slower than the cast beyond the runs' spread
+    kern, lib = [], []
+    for r in range(CAST_ROUNDS):
+        pair = ((kern, lambda: gram.cast_rows(Cr)),
+                (lib, lambda: Cr.to(torch.int16)))
+        for times, fn in pair[::1 if r % 2 == 0 else -1]:
+            times.append(_cuda_ms(torch, fn, 20))
+    out["cast_rows"][1].update(
+        rounds=CAST_ROUNDS, kernel_median_ms=float(np.median(kern)),
+        library_median_ms=float(np.median(lib)),
+        kernel_spread_ms=float(np.ptp(kern)),
+        library_spread_ms=float(np.ptp(lib)),
+        kernel_faster_rounds=int(sum(k < l for k, l in zip(kern, lib))))
 
     top = int(_u32(torch, Cr).max())
     survivors = None
@@ -503,48 +529,70 @@ def check_bounds_zero(torch, gram, C_random, C_counts) -> list:
     return out
 
 
+def _int_mm_ms(torch, rng, q: int, B) -> float:
+    """torch._int_mm of random int8 [q, P] by B [P, S]: the query
+    contraction's yardstick (signed, one limb: not the same function)."""
+    A = torch.from_numpy(rng.integers(-128, 128, size=(q, B.shape[0]),
+                                      dtype=np.int8)).to(B.device)
+    return _cuda_ms(torch, lambda: torch._int_mm(A, B), 10)
+
+
+def _splits(torch, gram, Q: int, P: int, S: int) -> dict:
+    """The planner's k_splits for a query contraction on this card and the
+    blocks of its grid."""
+    k = gram.matmul_splits(Q, S, P, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    return dict(k_splits=k, blocks=(Q // 128) * (S // 128) * k)
+
+
 def check_query_kernels(torch, gram, intersect, db, queries, rng) -> list:
     """Phase 11: matmul_u32_acc == plain at new2all's shapes: Q_pad and
     S_pad of the first flush and the first m2a_prepare chunk's B, with H
-    over every uint8 byte and uint32 H of 4 limbs at 2^31 and above."""
+    over every uint8 byte and uint32 H of 4 limbs at 2^31 and above; then
+    Q_pad 128 (the 76-query flush, a mesh slot), whose grid is split.
+    torch._int_mm of int8 operands of each shape is the yardstick."""
     dev = torch.device("cuda")
     H_all, B_all, route_limbs = intersect.m2a_prepare(db, queries)
     n_chunks, Q_pad, P_pad = H_all.shape
     S_pad = B_all.shape[2]
     B = torch.from_numpy(B_all[0]).to(dev)
     del H_all, B_all
-    C0 = torch.from_numpy(rng.integers(0, 1 << 32, size=(Q_pad, S_pad),
-                                       dtype=np.uint64).astype(np.uint32)
-                          .view(np.int32)).to(dev)
+    library_ms = {q: _int_mm_ms(torch, rng, q, B) for q in (Q_pad, 128)}
     out = []
-    for h_type, n_limbs in (("uint8", 1), ("uint32", 4)):
+    for h_type, n_limbs, Q in (("uint8", 1, Q_pad), ("uint32", 4, Q_pad),
+                               ("uint8", 1, 128)):
         if n_limbs == 1:
-            H = rng.integers(0, 256, size=(Q_pad, P_pad), dtype=np.uint8)
+            H = rng.integers(0, 256, size=(Q, P_pad), dtype=np.uint8)
             H[:, :256] = np.arange(256, dtype=np.uint8)    # every byte
         else:
-            H = rng.integers(1 << 31, 1 << 32, size=(Q_pad, P_pad),
+            H = rng.integers(1 << 31, 1 << 32, size=(Q, P_pad),
                              dtype=np.uint64).astype(np.uint32).view(np.int32)
         H = torch.from_numpy(H).to(dev)
+        C0 = torch.from_numpy(rng.integers(0, 1 << 32, size=(Q, S_pad),
+                                           dtype=np.uint64).astype(np.uint32)
+                              .view(np.int32)).to(dev)
         Ck = gram.matmul_u32_acc(H, B, C0.clone(), n_limbs=n_limbs)
         Cp = gram.matmul_u32_acc_plain(H, B, C0.clone(), n_limbs=n_limbs)
         torch.cuda.synchronize()
         err = _err(torch, Ck, Cp)
         _check(torch.equal(Ck, Cp) and not torch.equal(Ck, C0),
                f"matmul_u32_acc differs from its plain version "
-               f"({h_type} H, max_abs_err={err})")
+               f"({h_type} H, Q_pad {Q}, max_abs_err={err})")
         Ct = C0.clone()
         ms = _cuda_ms(torch, lambda: gram.matmul_u32_acc(
-            H, B, Ct, n_limbs=n_limbs), 5)
+            H, B, Ct, n_limbs=n_limbs), 10)
         plain_ms = _cuda_ms(torch, lambda: gram.matmul_u32_acc_plain(
             H, B, Ct, n_limbs=n_limbs), 2)
-        ops = 2.0 * Q_pad * P_pad * S_pad * n_limbs
-        out.append(dict(H=h_type, n_limbs=n_limbs, Q_pad=Q_pad, P_pad=P_pad,
-                        S_pad=S_pad, chunks=n_chunks, route_limbs=route_limbs,
+        ops = 2.0 * Q * P_pad * S_pad * n_limbs
+        out.append(dict(H=h_type, n_limbs=n_limbs, Q_pad=Q, P_pad=P_pad,
+                        S_pad=S_pad, **_splits(torch, gram, Q, P_pad, S_pad),
+                        chunks=n_chunks, route_limbs=route_limbs,
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=library_ms[Q], library=INT_MM,
                         tops=ops / ms / 1e9, ops=ops,
-                        bytes=Q_pad * P_pad * H.element_size()
-                        + P_pad * S_pad + 8 * Q_pad * S_pad))
-        del H, Ck, Cp, Ct
+                        bytes=Q * P_pad * H.element_size()
+                        + P_pad * S_pad + 8 * Q * S_pad))
+        del H, C0, Ck, Cp, Ct
     return out
 
 
@@ -863,6 +911,7 @@ def check_scan_kernels(torch, gram, intersect, db, rng) -> dict:
                 library_ms=library_ms, tops=ops / ms / 1e9, ops=ops,
                 bytes=P_pad * (S_pad + 4) + 4 * S_pad * S_pad))
     del ones
+    mm_library_ms = _int_mm_ms(torch, rng, SCAN_Q_PAD, B)
     for h_type, n_limbs in (("uint8", 1), ("uint32", 4)):
         if n_limbs == 1:
             H = rng.integers(0, 256, size=(SCAN_Q_PAD, P_pad), dtype=np.uint8)
@@ -879,13 +928,16 @@ def check_scan_kernels(torch, gram, intersect, db, rng) -> dict:
                f"matmul_u32 differs from its plain version ({h_type} H, "
                f"max_abs_err={err})")
         del Ck, Cp
-        ms = _cuda_ms(torch, lambda: gram.matmul_u32(H, B, n_limbs=n_limbs), 5)
+        ms = _cuda_ms(torch, lambda: gram.matmul_u32(H, B, n_limbs=n_limbs),
+                      10)
         plain_ms = _cuda_ms(torch, lambda: gram.matmul_u32_plain(
             H, B, n_limbs=n_limbs), 2)
         ops = 2.0 * SCAN_Q_PAD * P_pad * S_pad * n_limbs
         out["matmul_u32"].append(dict(
             H=h_type, n_limbs=n_limbs, Q_pad=SCAN_Q_PAD, **shape,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, tops=ops / ms / 1e9,
+            **_splits(torch, gram, SCAN_Q_PAD, P_pad, S_pad),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=mm_library_ms, library=INT_MM, tops=ops / ms / 1e9,
             ops=ops, bytes=SCAN_Q_PAD * P_pad * H.element_size()
             + P_pad * S_pad + 4 * SCAN_Q_PAD * S_pad))
         del H
@@ -1344,9 +1396,12 @@ MMA_KERNELS = {"gram_pk_tri": "gram_pk_tri_kernel",
                "sweep_int8": "sweep_int8_kernel",
                "gram_u32_tri": "gram_u32_kernelILb1E",
                "gram_u32": "gram_u32_kernelILb0E",
-               "sweep_dotonly_s8": "sweep_s8_kernel"}
+               "sweep_dotonly_s8": "sweep_s8_kernel",
+               "matmul_u32_acc": "matmul_acc_kernel",
+               "matmul_u32": "matmul_acc_kernel"}
 #: those of gram_u8.cuh's block, whose shared memory is dynamic
-U8_KERNELS = ("gram_u32_tri", "gram_u32", "sweep_dotonly_s8")
+U8_KERNELS = ("gram_u32_tri", "gram_u32", "sweep_dotonly_s8",
+              "matmul_u32_acc", "matmul_u32")
 
 
 def _mma_resources(log: str, u8_smem: int) -> dict:
@@ -1354,22 +1409,23 @@ def _mma_resources(log: str, u8_smem: int) -> dict:
     memory by record name, from nvcc's -Xptxas -v output (static shared
     memory; U8_KERNELS add their `u8_smem` dynamic bytes); fails if one is
     missing."""
-    out, rec = {}, None
+    out, recs = {}, []
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            rec = next((r for r, k in MMA_KERNELS.items() if k in m[1]), None)
+            recs = [r for r, k in MMA_KERNELS.items() if k in m[1]]
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           ln)
-        if rec and spill:
-            out[rec] = dict(spill_bytes=int(spill[1]) + int(spill[2]))
         regs = re.search(r"Used (\d+) registers", ln)
-        if rec in out and regs:
-            smem = re.search(r"(\d+) bytes smem", ln)
-            out[rec].update(registers=int(regs[1]),
-                            smem_bytes=(int(smem[1]) if smem else 0)
-                            + (u8_smem if rec in U8_KERNELS else 0))
+        for rec in recs:
+            if spill:
+                out[rec] = dict(spill_bytes=int(spill[1]) + int(spill[2]))
+            if rec in out and regs:
+                smem = re.search(r"(\d+) bytes smem", ln)
+                out[rec].update(registers=int(regs[1]),
+                                smem_bytes=(int(smem[1]) if smem else 0)
+                                + (u8_smem if rec in U8_KERNELS else 0))
     _check(all(len(out.get(r, {})) == 3 for r in MMA_KERNELS),
            f"ptxas gave no resources for some of {MMA_KERNELS}: {out}")
     return out

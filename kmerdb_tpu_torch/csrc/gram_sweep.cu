@@ -255,9 +255,10 @@ sweep_s8_kernel(const int8_t* __restrict__ bi, const int8_t* __restrict__ bj,
                 uint32_t* __restrict__ c, int64_t p, int64_t s, int sub) {
   extern __shared__ __align__(16) uint8_t smem[];
   const Coords k = coords(sub);
-  gram_u8::block<false>(smem, reinterpret_cast<const uint8_t*>(bi) + k.row0,
-                        reinterpret_cast<const uint8_t*>(bj) + k.col0, s, nullptr, p, 1,
-                        gram_u8::kFlushS8, c + k.row0 * s + k.col0, s);
+  const gram_u8::PatternRows rows(reinterpret_cast<const uint8_t*>(bi) + k.row0, s);
+  gram_u8::block<false, false>(smem, rows, reinterpret_cast<const uint8_t*>(bj) + k.col0, s,
+                               nullptr, 0, static_cast<int>(p / gram_u8::kStage), 1,
+                               gram_u8::kFlushS8, false, c + k.row0 * s + k.col0, s);
 }
 
 // int8: the production block (gram_pk.cuh) at one 7-bit limb, Bi != Bj.

@@ -17,9 +17,9 @@
 //
 // Block.  gram_u8.cuh's body in its weighted form, on Hopper's int8 tensor
 // cores (mma.sync .u8.u8, so limb bytes 128..255 stay positive): b is both
-// operands, the block's row samples and its column samples; the limbs are
-// the outer loop and each limb's sum joins C as sum << 8l at least every
-// 2^23 patterns.  Its staging, fragments and what bounds it: gram_u8.cuh.
+// operands, the block's row samples (PatternRows) and its column samples;
+// the limbs are the outer loop and each limb's sum joins C as sum << 8l at
+// least every 2^23 patterns.  Its staging, fragments and what bounds it: gram_u8.cuh.
 //
 // Grids.  One block of 256 threads per 128 x 128 output block: the full grid
 // (s_pad / 128)^2, or the lower triangle enumerated by tri_coords (tri.cuh).
@@ -48,8 +48,10 @@ gram_u32_kernel(const uint8_t* __restrict__ b, const uint32_t* __restrict__ w,
   }
   const int64_t row0 = static_cast<int64_t>(bi) * gram_u8::kBlock;
   const int64_t col0 = static_cast<int64_t>(bj) * gram_u8::kBlock;
-  gram_u8::block<true>(smem, b + row0, b + col0, s_pad, w, p_pad, n_limbs, gram_u8::kFlushU8,
-                       c + row0 * s_pad + col0, s_pad);
+  const gram_u8::PatternRows rows(b + row0, s_pad);
+  gram_u8::block<true, true>(smem, rows, b + col0, s_pad, w, 0,
+                             static_cast<int>(p_pad / gram_u8::kStage), n_limbs,
+                             gram_u8::kFlushU8, true, c + row0 * s_pad + col0, s_pad);
 }
 
 }  // namespace
@@ -87,5 +89,6 @@ extern "C" int kmerdb_gram_u32(const void* b, const void* w, void* c, int64_t p_
 }
 
 // The dynamic shared memory a block of gram_u8.cuh's body takes, in bytes
-// (ptxas reports static shared memory only).
+// (ptxas reports static shared memory only): that of gram_u32.cu's kernels
+// and of matmul_acc.cu's.
 extern "C" int kmerdb_gram_u8_smem_bytes() { return gram_u8::kSmemBytes; }

@@ -1,193 +1,209 @@
 // Accumulating query contraction for Hopper: C <- C + H @ B, exact mod 2^32.
 //
 // Replaces matmul_u32_acc (_matmul_acc_kernel) of
-// kmerdb_tpu/ops/pallas_gram.py: the new2all device tier, where H holds the
+// kmerdb_tpu/ops/pallas_gram.py, the new2all device tier, where H holds the
 // hit count of each (query, database pattern) and B the patterns' sample
-// incidence, so C[q, s] counts the k-mers query q shares with sample s.
+// incidence, so C[q, s] counts the k-mers query q shares with sample s; and
+// with C written fresh, matmul_u32 (_matmul_tile_kernel), the chunk product
+// of new2all's scan tier.
 //   h  [q_pad, p_pad] row-major: uint8 when one 8-bit limb holds every count,
-//      uint32 (kWide) otherwise;
+//      uint32 (h_bytes 4) otherwise;
 //   b  int8 0/1 [p_pad, s_pad] row-major along patterns (unpacked);
 //   c  uint32[q_pad, s_pad], updated in place.
-// q_pad and s_pad are multiples of 128, p_pad of the 128-pattern stage; every
-// pointer is 16-byte aligned.
+// q_pad, p_pad and s_pad are multiples of 128; every pointer is 16-byte
+// aligned.
 //
-// Limbs.  For each 8-bit limb l of H (as the TPU kernel splits it), one
-// unsigned __dp4a adds four h_l * bit products into a partial of the stage,
-// at most 255 * 128; the partial joins the uint32 accumulator as part << 8l,
-// which wraps mod 2^32 like the reference's num_kmers_t.  The operands are
-// unsigned words: the signed dp4a would read limb bytes 128..255 as negative.
+// Limbs.  The 8-bit limbs (h >> 8l) & 0xFF of uint32 H, as the TPU kernel
+// splits them.  limb_planes_kernel splits H once a call into n_limbs planes
+// uint8[q_pad, p_pad] (the caller's scratch), so that every limb is a
+// one-byte operand like uint8 H.
 //
-// Stage.  128 patterns at a time, the K loop inside the block (the TPU's
-// sequential K grid axis).  A dp4a word needs four consecutive patterns of
-// one sample, which lie s_pad bytes apart in B: each staging thread reads one
-// word (four samples) from each of four consecutive pattern rows and
-// transposes the 4 x 4 bytes into four words, one per sample.  H's four
-// consecutive patterns of one query are four consecutive bytes (uint8) or the
-// limb's byte of four consecutive words (uint32).
+// Block.  gram_u8.cuh's body with its QueryRows operand on Hopper's int8
+// tensor cores (mma.sync .u8.u8, so H bytes 128..255 stay positive): H's
+// plane rows are K-major already (a query's patterns are consecutive
+// bytes), the A fragments mma wants, loaded by ldmatrix; B is the column
+// slab of the unpacked Gram, staged and transposed in its fragment reads as
+// there.  The limbs are the outer loop and each limb's sum joins C as
+// sum << 8l at least every 2^23 patterns.  Its staging, fragments and what
+// bounds it: gram_u8.cuh.
 //
-// Grid.  One block of 256 threads per 128 x 128 output block:
-// (s_pad / 128) x (q_pad / 128); each thread owns an 8 x 8 block of outputs.
-//
-// What bounds it.  Integer multiply-adds, as in gram_pk.cuh: every operand of
-// the inner loop sits in shared memory and registers (64 dp4a per 16 bytes a
-// thread loads).  H is re-read once per column block and B once per row
-// block, from L2 at new2all's shapes (H is 512 queries tall).  dp4a runs on
-// the CUDA cores; the int8 tensor-core path (wgmma) is later work.
+// Grid.  (s_pad / 128, q_pad / 128, k_splits): one block of 256 threads per
+// 128 x 128 output block and split; split z takes a run of whole 128-pattern
+// stages (split_range), so that new2all's few output blocks (32 at Q_pad
+// 128, 128 at 512) still fill the card's two blocks an SM.  With k_splits ==
+// 1 a block adds its flushes into C (stores the first, for the fresh
+// product).  With k_splits > 1 split z writes its sums into its own slice
+// of `partials` (uint32[k_splits, q_pad, s_pad], the caller's scratch), and
+// split_sum_kernel then adds the slices into C in one pass.  Flushing by
+// red.global.add.u32 straight into C, tried first, made 2 splits slower
+// than one at new2all's chunk shape (Q_pad 512 x P_pad 10,496 x S_pad
+// 4,096: 0.1183 against 0.0912 ms, tools/gram_u8_rate.py, PERF.md).
+// uint32 addition mod 2^32 is associative and commutative, so C is
+// bit-identical at any k_splits and from run to run, with no tolerance.
+// The caller (ops/gram.matmul_splits) picks k_splits.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "gram_u8.cuh"
+
 namespace {
 
-constexpr int kBlock = 128;         // output block edge
-constexpr int kStage = 128;         // patterns per stage
-constexpr int kQuads = kStage / 4;  // dp4a words per query or sample and stage
-constexpr int kThreads = 256;       // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kMaxLimbs = 4;        // 8-bit limbs of a uint32 count
+constexpr int kMaxDevices = 64;     // devices whose attribute is remembered
+constexpr int64_t kGridMax = 4096;  // the elementwise kernels' grid; they stride past it
 
-// 32,768 bytes of static shared memory
-struct Smem {
-  __align__(16) uint32_t a[kQuads][kBlock];  // word (q, row): limb bytes of patterns 4q..4q+3
-  __align__(16) uint32_t b[kQuads][kBlock];  // word (q, col): bits of patterns 4q..4q+3
-};
+// Split z of k's run of stages out of n: the first n % k splits take one
+// stage more than the rest.
+__device__ __forceinline__ void split_range(int n, int k, int z, int& st0, int& n_st) {
+  const int base = n / k;
+  const int rem = n % k;
+  st0 = z * base + min(z, rem);
+  n_st = base + (z < rem ? 1 : 0);
+}
 
-template <bool kWide>
-__global__ void __launch_bounds__(kThreads)
-matmul_acc_kernel(const void* __restrict__ h, const uint8_t* __restrict__ b,
-                  uint32_t* __restrict__ c, int64_t p_pad, int64_t s_pad, int n_limbs) {
-  __shared__ Smem sm;
-  const int tid = threadIdx.x;
-  // thread (ty, tx) owns rows {ty*4 + k, 64 + ty*4 + k} and columns
-  // {tx*4 + k, 64 + tx*4 + k}, k = 0..3, as in gram_pk.cuh
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * kBlock;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kBlock;
+__global__ void __launch_bounds__(gram_u8::kThreads, gram_u8::kMinBlocks)
+matmul_acc_kernel(const uint8_t* __restrict__ h, const uint8_t* __restrict__ b,
+                  uint32_t* __restrict__ out, int64_t q_pad, int64_t p_pad, int64_t s_pad,
+                  int n_limbs, bool fresh) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * gram_u8::kBlock;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * gram_u8::kBlock;
+  int st0, n_st;
+  split_range(static_cast<int>(p_pad / gram_u8::kStage), static_cast<int>(gridDim.z),
+              static_cast<int>(blockIdx.z), st0, n_st);
+  const gram_u8::QueryRows rows(h + row0 * p_pad, p_pad, q_pad * p_pad);
+  gram_u8::block<false, true>(smem, rows, b + col0, s_pad, nullptr, st0, n_st, n_limbs,
+                              gram_u8::kFlushU8, fresh,
+                              out + blockIdx.z * q_pad * s_pad + row0 * s_pad + col0, s_pad);
+}
 
-  uint32_t acc[8][8];
-#pragma unroll
-  for (int m = 0; m < 8; ++m)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) acc[m][n] = 0u;
-
-  for (int64_t p0 = 0; p0 < p_pad; p0 += kStage) {
-    __syncthreads();  // the previous stage's readers are done
-    for (int it = tid; it < kQuads * (kBlock / 4); it += kThreads) {
-      const int q = it / (kBlock / 4);
-      const int s = (it % (kBlock / 4)) * 4;
-      const uint8_t* src = b + (p0 + 4 * q) * s_pad + col0 + s;
-      uint32_t row[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) row[k] = *reinterpret_cast<const uint32_t*>(src + k * s_pad);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t word = 0u;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) word |= ((row[k] >> (8 * j)) & 0xFFu) << (8 * k);
-        sm.b[q][s + j] = word;
-      }
+// c[i] (+)= sum over the k slices of partials[., i]: four cells a thread.
+__global__ void __launch_bounds__(256)
+split_sum_kernel(const uint4* __restrict__ partials, uint4* __restrict__ c, int64_t n4, int k,
+                 bool fresh) {
+  for (int64_t i = blockIdx.x * int64_t{256} + threadIdx.x; i < n4;
+       i += int64_t{gridDim.x} * 256) {
+    uint4 acc = fresh ? make_uint4(0u, 0u, 0u, 0u) : c[i];
+    for (int z = 0; z < k; ++z) {
+      const uint4 v = partials[z * n4 + i];
+      acc = make_uint4(acc.x + v.x, acc.y + v.y, acc.z + v.z, acc.w + v.w);
     }
+    c[i] = acc;
+  }
+}
+
+// planes[l] = (h >> 8l) & 0xFF for l < n_limbs: four words a thread, one
+// 32-bit store a plane.
+__global__ void __launch_bounds__(256)
+limb_planes_kernel(const uint4* __restrict__ h, uint32_t* __restrict__ planes, int64_t n4,
+                   int n_limbs) {
+  for (int64_t i = blockIdx.x * int64_t{256} + threadIdx.x; i < n4;
+       i += int64_t{gridDim.x} * 256) {
+    const uint4 v = h[i];
     for (int l = 0; l < n_limbs; ++l) {
-      if (l > 0) __syncthreads();  // the previous limb's readers are done
-      if constexpr (kWide) {
-        const uint32_t* hw = static_cast<const uint32_t*>(h);
-        const int sh = 8 * l;
-        for (int it = tid; it < kQuads * kBlock; it += kThreads) {
-          const int q = it / kBlock;
-          const int r = it % kBlock;
-          const uint4 v = *reinterpret_cast<const uint4*>(hw + (row0 + r) * p_pad + p0 + 4 * q);
-          sm.a[q][r] = ((v.x >> sh) & 0xFFu) | (((v.y >> sh) & 0xFFu) << 8) |
-                       (((v.z >> sh) & 0xFFu) << 16) | (((v.w >> sh) & 0xFFu) << 24);
-        }
-      } else {
-        // one limb: 16 bytes (four words) of one query a thread
-        const uint8_t* hb = static_cast<const uint8_t*>(h);
-        for (int it = tid; it < (kQuads / 4) * kBlock; it += kThreads) {
-          const int g = it / kBlock;
-          const int r = it % kBlock;
-          const uint4 v = *reinterpret_cast<const uint4*>(hb + (row0 + r) * p_pad + p0 + 16 * g);
-          sm.a[4 * g + 0][r] = v.x;
-          sm.a[4 * g + 1][r] = v.y;
-          sm.a[4 * g + 2][r] = v.z;
-          sm.a[4 * g + 3][r] = v.w;
-        }
-      }
-      __syncthreads();
-
-      uint32_t part[8][8];
-#pragma unroll
-      for (int m = 0; m < 8; ++m)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) part[m][n] = 0u;
-#pragma unroll 4
-      for (int q = 0; q < kQuads; ++q) {
-        const uint4 a0 = *reinterpret_cast<const uint4*>(&sm.a[q][ty * 4]);
-        const uint4 a1 = *reinterpret_cast<const uint4*>(&sm.a[q][64 + ty * 4]);
-        const uint4 b0 = *reinterpret_cast<const uint4*>(&sm.b[q][tx * 4]);
-        const uint4 b1 = *reinterpret_cast<const uint4*>(&sm.b[q][64 + tx * 4]);
-        const uint32_t av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const uint32_t bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int m = 0; m < 8; ++m)
-#pragma unroll
-          for (int n = 0; n < 8; ++n) part[m][n] = __dp4a(av[m], bv[n], part[m][n]);
-      }
-#pragma unroll
-      for (int m = 0; m < 8; ++m)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) acc[m][n] += part[m][n] << (8 * l);
+      const int sh = 8 * l;
+      planes[l * n4 + i] = ((v.x >> sh) & 0xFFu) | (((v.y >> sh) & 0xFFu) << 8) |
+                           (((v.z >> sh) & 0xFFu) << 16) | (((v.w >> sh) & 0xFFu) << 24);
     }
   }
+}
 
-  uint32_t* out = c + row0 * s_pad + col0;
-#pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    const int64_t row = m < 4 ? ty * 4 + m : 64 + ty * 4 + (m - 4);
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      uint4* dst = reinterpret_cast<uint4*>(out + row * s_pad + hh * 64 + tx * 4);
-      uint4 v = *dst;
-      v.x += acc[m][hh * 4 + 0];
-      v.y += acc[m][hh * 4 + 1];
-      v.z += acc[m][hh * 4 + 2];
-      v.w += acc[m][hh * 4 + 3];
-      *dst = v;
-    }
+// Blocks of 256 threads for n4 items of four, at most kGridMax.
+unsigned grid_of(int64_t n4) {
+  const int64_t blocks = (n4 + 255) / 256;
+  return static_cast<unsigned>(blocks < kGridMax ? blocks : kGridMax);
+}
+
+cudaError_t launch_planes(const void* h, void* planes, int64_t n, int n_limbs,
+                          cudaStream_t st) {
+  const int64_t n4 = n / 4;
+  if (n4 == 0) return cudaSuccess;
+  limb_planes_kernel<<<grid_of(n4), 256, 0, st>>>(static_cast<const uint4*>(h),
+                                                  static_cast<uint32_t*>(planes), n4, n_limbs);
+  return cudaGetLastError();
+}
+
+// gram_u8::allow_smem for matmul_acc_kernel, once a device: the launcher
+// runs once a chunk of new2all, where its calls cost more host time than a
+// small product takes on the card.
+cudaError_t allow_smem_once() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = gram_u8::allow_smem(matmul_acc_kernel);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+// C (+)= H @ B on `stream` over k_splits runs of stages, written fresh when
+// `fresh`.  h_bytes is H's element size (1: uint8, one limb; 4: uint32,
+// n_limbs limbs, split first into `planes`, uint8[n_limbs, q_pad, p_pad]
+// scratch, unused for uint8); `partials` is uint32[k_splits, q_pad, s_pad]
+// scratch, unused at one split.  Returns the first cudaError_t of the calls
+// (0 when all were accepted).  The caller checks shapes, types, alignment
+// and k_splits.
+int launch(const void* h, int h_bytes, const void* b, void* c, int64_t q_pad, int64_t p_pad,
+           int64_t s_pad, int n_limbs, int k_splits, void* planes, void* partials, bool fresh,
+           cudaStream_t st) {
+  const int64_t row_blocks = q_pad / gram_u8::kBlock;
+  const int64_t col_blocks = s_pad / gram_u8::kBlock;
+  if (row_blocks > 65535 || n_limbs < 1 || n_limbs > kMaxLimbs || k_splits < 1 ||
+      k_splits > 65535 || (h_bytes != 1 && h_bytes != 4) || (h_bytes == 1 && n_limbs != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (row_blocks == 0 || col_blocks == 0) return 0;
+  if (p_pad == 0)
+    return fresh ? static_cast<int>(cudaMemsetAsync(
+                       c, 0, static_cast<size_t>(q_pad) * s_pad * sizeof(uint32_t), st))
+                 : 0;
+  if (k_splits > p_pad / gram_u8::kStage) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem_once();
+  if (err == cudaSuccess && h_bytes == 4) {
+    err = launch_planes(h, planes, q_pad * p_pad, n_limbs, st);
+    h = planes;
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(col_blocks), static_cast<unsigned>(row_blocks),
+                  static_cast<unsigned>(k_splits));
+  matmul_acc_kernel<<<grid, gram_u8::kThreads, gram_u8::kSmemBytes, st>>>(
+      static_cast<const uint8_t*>(h), static_cast<const uint8_t*>(b),
+      static_cast<uint32_t*>(k_splits > 1 ? partials : c), q_pad, p_pad, s_pad, n_limbs,
+      fresh || k_splits > 1);
+  err = cudaGetLastError();
+  if (err == cudaSuccess && k_splits > 1) {
+    const int64_t n4 = q_pad * s_pad / 4;
+    split_sum_kernel<<<grid_of(n4), 256, 0, st>>>(static_cast<const uint4*>(partials),
+                                                   static_cast<uint4*>(c), n4, k_splits, fresh);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Launches C += H @ B on `stream`; h_bytes is H's element size (1: uint8, one
-// limb; 4: uint32, n_limbs limbs).  Returns the launch's cudaError_t.  The
-// caller checks shapes, types and alignment.
-extern "C" int kmerdb_matmul_acc(const void* h, int h_bytes, const void* b, void* c,
-                                 int64_t q_pad, int64_t p_pad, int64_t s_pad, int n_limbs,
-                                 void* stream) {
-  const int64_t row_blocks = q_pad / kBlock;
-  const int64_t col_blocks = s_pad / kBlock;
-  if (row_blocks == 0 || col_blocks == 0 || p_pad == 0) return 0;
-  if (row_blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(col_blocks), static_cast<unsigned>(row_blocks));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (h_bytes == 1) {
-    matmul_acc_kernel<false><<<grid, kThreads, 0, st>>>(
-        h, static_cast<const uint8_t*>(b), static_cast<uint32_t*>(c), p_pad, s_pad, 1);
-  } else {
-    matmul_acc_kernel<true><<<grid, kThreads, 0, st>>>(
-        h, static_cast<const uint8_t*>(b), static_cast<uint32_t*>(c), p_pad, s_pad, n_limbs);
-  }
-  return static_cast<int>(cudaGetLastError());
+// Splits the n (a multiple of 4) uint32 words at h into n_limbs planes of
+// n bytes at `planes` on `stream`.  Returns the launch's cudaError_t.
+extern "C" int kmerdb_limb_planes(const void* h, void* planes, int64_t n, int n_limbs,
+                                  void* stream) {
+  if (n_limbs < 1 || n_limbs > kMaxLimbs || n % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_planes(h, planes, n, n_limbs, static_cast<cudaStream_t>(stream)));
 }
 
-// The fresh product C = H @ B of new2all's scan tier (matmul_u32 of
-// kmerdb_tpu/ops/pallas_gram.py, _matmul_tile_kernel): C zeroed on `stream`,
-// then the accumulating kernel above.  Returns the first cudaError_t.
+// C += H @ B on `stream` (launch above).
+extern "C" int kmerdb_matmul_acc(const void* h, int h_bytes, const void* b, void* c,
+                                 int64_t q_pad, int64_t p_pad, int64_t s_pad, int n_limbs,
+                                 int k_splits, void* planes, void* partials, void* stream) {
+  return launch(h, h_bytes, b, c, q_pad, p_pad, s_pad, n_limbs, k_splits, planes, partials,
+                false, static_cast<cudaStream_t>(stream));
+}
+
+// The fresh product C = H @ B on `stream` (launch above).
 extern "C" int kmerdb_matmul_u32(const void* h, int h_bytes, const void* b, void* c,
                                  int64_t q_pad, int64_t p_pad, int64_t s_pad, int n_limbs,
-                                 void* stream) {
-  const cudaError_t err =
-      cudaMemsetAsync(c, 0, static_cast<size_t>(q_pad) * s_pad * sizeof(uint32_t),
-                      static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return kmerdb_matmul_acc(h, h_bytes, b, c, q_pad, p_pad, s_pad, n_limbs, stream);
+                                 int k_splits, void* planes, void* partials, void* stream) {
+  return launch(h, h_bytes, b, c, q_pad, p_pad, s_pad, n_limbs, k_splits, planes, partials,
+                true, static_cast<cudaStream_t>(stream));
 }

@@ -117,8 +117,11 @@ def lib() -> ctypes.CDLL:
              [vp, vp, vp, i64, i64, i64, i64, i32, i32, i32, vp]),
             ("kmerdb_cross_pk",
              [vp, vp, vp, vp, i64, i64, i64, i32, i32, vp]),
-            ("kmerdb_matmul_acc", [vp, i32, vp, vp, i64, i64, i64, i32, vp]),
-            ("kmerdb_matmul_u32", [vp, i32, vp, vp, i64, i64, i64, i32, vp]),
+            ("kmerdb_matmul_acc",
+             [vp, i32, vp, vp, i64, i64, i64, i32, i32, vp, vp, vp]),
+            ("kmerdb_matmul_u32",
+             [vp, i32, vp, vp, i64, i64, i64, i32, i32, vp, vp, vp]),
+            ("kmerdb_limb_planes", [vp, vp, i64, i32, vp]),
             ("kmerdb_gram_u32", [vp, vp, vp, i64, i64, i32, i32, vp]),
             ("kmerdb_gram_u8_smem_bytes", []),
             ("kmerdb_tril_tiles", [vp, vp, i64, i32, vp]),

@@ -369,22 +369,74 @@ def _limb_matmul_plain(h: torch.Tensor, B: torch.Tensor,
     return acc
 
 
+def matmul_splits(q_pad: int, s_pad: int, p_pad: int, n_sm: int) -> int:
+    """k_splits of the query contraction's grid (csrc/matmul_acc.cu): the
+    runs of 128-pattern stages each 128 x 128 output block is cut into, so
+    that the grid holds about one block for each of the card's n_sm SMs.
+    1 when the output blocks alone fill the card, and never more than the
+    P_pad / 128 stages.  One block an SM and not the two an SM holds: a
+    second block adds a fifth to an SM's rate, less than the split's sums
+    cost (at new2all's Q_pad 512, 2 splits took 0.0936 ms against 0.0901
+    for one; at Q_pad 128, 8 took 0.0401 against 4's 0.0370; PERF.md)."""
+    blocks = (q_pad // BLOCK) * (s_pad // BLOCK)
+    return max(1, min(p_pad // BLOCK, n_sm // max(1, blocks)))
+
+
+def split_stages(n_stages: int, k_splits: int) -> list:
+    """[(first stage, stages)] of each split, as the kernel's split_range
+    cuts n_stages (csrc/matmul_acc.cu): the first n_stages % k_splits
+    splits take one stage more than the rest."""
+    base, rem = divmod(n_stages, k_splits)
+    return [(z * base + min(z, rem), base + (z < rem))
+            for z in range(k_splits)]
+
+
+@functools.cache
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_splits(H, k_splits) -> None:
+    _require(k_splits is None or (isinstance(k_splits, int)
+                                  and 1 <= k_splits <= H.shape[1] // BLOCK),
+             "k_splits must lie in 1..P / 128")
+
+
+def _launch_matmul(fn, H, B, C, n_limbs, k_splits) -> None:
+    """One C launcher of csrc/matmul_acc.cu on PyTorch's current stream,
+    with the planner's k_splits unless given, and its scratch: the limb
+    planes of uint32 H, each split's sums when k_splits > 1 (about one
+    output block of 64 KB an SM)."""
+    _require(all(t.data_ptr() % 16 == 0 for t in (H, B, C)),
+             "H, B and C must be 16-byte aligned")
+    Q, P = H.shape
+    S = B.shape[1]
+    if k_splits is None:
+        k_splits = matmul_splits(Q, S, P, _n_sm(C.device.index))
+    planes = torch.empty((n_limbs, Q, P), dtype=torch.uint8,
+                         device=C.device) if H.dtype == torch.int32 else None
+    partials = torch.empty((k_splits, Q, S), dtype=torch.int32,
+                           device=C.device) if k_splits > 1 else None
+    _cuda_call(fn, H.data_ptr(), H.element_size(), B.data_ptr(), C.data_ptr(),
+               Q, P, S, n_limbs, k_splits,
+               *(t.data_ptr() if t is not None else None
+                 for t in (planes, partials)), device=C.device)
+
+
 def matmul_u32_acc(H: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *,
-                   n_limbs: int) -> torch.Tensor:
+                   n_limbs: int, k_splits: int | None = None) -> torch.Tensor:
     """C += H @ B, in place, exact mod 2^32: H uint8 (one limb) or uint32
     bits in int32 storage [Q, P], split into n_limbs 8-bit limbs; B int8
-    0/1 [P, S]; C int32[Q, S].
+    0/1 [P, S]; C int32[Q, S].  k_splits (tests and chip_smoke.py only)
+    overrides matmul_splits' split of the patterns.
 
     Replaces kmerdb_tpu/ops/pallas_gram.py matmul_u32_acc.  CUDA tensors
     go to csrc/matmul_acc.cu; CPU tensors to matmul_u32_acc_plain."""
     _check_matmul(H, B, C, n_limbs)
+    _check_splits(H, k_splits)
     if _kernel_device(H, B, C) == "cpu":
         return matmul_u32_acc_plain(H, B, C, n_limbs=n_limbs)
-    _require(all(t.data_ptr() % 16 == 0 for t in (H, B, C)),
-             "H, B and C must be 16-byte aligned")
-    _cuda_call(_cuda.lib().kmerdb_matmul_acc, H.data_ptr(), H.element_size(),
-               B.data_ptr(), C.data_ptr(), H.shape[0], H.shape[1],
-               B.shape[1], n_limbs, device=C.device)
+    _launch_matmul(_cuda.lib().kmerdb_matmul_acc, H, B, C, n_limbs, k_splits)
     matmul_u32_acc.launches += 1
     return C
 
@@ -403,24 +455,21 @@ def matmul_u32_acc_plain(H: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     return C
 
 
-def matmul_u32(H: torch.Tensor, B: torch.Tensor, *,
-               n_limbs: int) -> torch.Tensor:
-    """Fresh C = H @ B int32[Q, S], exact mod 2^32, with H and B as in
-    matmul_u32_acc: the chunk product of new2all's scan tier.
+def matmul_u32(H: torch.Tensor, B: torch.Tensor, *, n_limbs: int,
+               k_splits: int | None = None) -> torch.Tensor:
+    """Fresh C = H @ B int32[Q, S], exact mod 2^32, with H, B and k_splits
+    as in matmul_u32_acc: the chunk product of new2all's scan tier.
 
     Replaces kmerdb_tpu/ops/pallas_gram.py matmul_u32 (_matmul_tile_kernel).
-    CUDA tensors go to csrc/matmul_acc.cu, whose body zeroes C first; CPU
+    CUDA tensors go to csrc/matmul_acc.cu, which writes C fresh; CPU
     tensors to matmul_u32_plain."""
     _check_matmul(H, B, None, n_limbs)
+    _check_splits(H, k_splits)
     if _kernel_device(H, B) == "cpu":
         return matmul_u32_plain(H, B, n_limbs=n_limbs)
-    _require(all(t.data_ptr() % 16 == 0 for t in (H, B)),
-             "H and B must be 16-byte aligned")
     C = torch.empty((H.shape[0], B.shape[1]), dtype=torch.int32,
                     device=B.device)
-    _cuda_call(_cuda.lib().kmerdb_matmul_u32, H.data_ptr(), H.element_size(),
-               B.data_ptr(), C.data_ptr(), H.shape[0], H.shape[1], B.shape[1],
-               n_limbs, device=C.device)
+    _launch_matmul(_cuda.lib().kmerdb_matmul_u32, H, B, C, n_limbs, k_splits)
     matmul_u32.launches += 1
     return C
 
@@ -434,6 +483,43 @@ def matmul_u32_plain(H: torch.Tensor, B: torch.Tensor, *,
     _check_matmul(H, B, None, n_limbs)
     return _to_int32(_limb_matmul_plain(H.to(torch.int64) & 0xFFFFFFFF, B,
                                         n_limbs))
+
+
+def _check_planes(H, n_limbs) -> None:
+    _require(H.dtype == torch.int32 and H.dim() == 2 and H.is_contiguous(),
+             "H must be contiguous int32 (uint32 bits) [Q, P]")
+    _require(all(n % 128 == 0 for n in H.shape),
+             "Q and P must be multiples of 128")
+    _require(1 <= n_limbs <= 32 // H_LIMB_BITS, "n_limbs must lie in 1..4")
+
+
+def limb_planes(H: torch.Tensor, n_limbs: int) -> torch.Tensor:
+    """uint8[n_limbs, Q, P] limb planes of uint32 H (int32 storage): plane
+    l is (H >> 8l) & 0xFF, the row operand that csrc/matmul_acc.cu's
+    product reads for uint32 H (its launcher splits H so once a call).
+
+    CUDA tensors go to the split kernel of csrc/matmul_acc.cu; CPU tensors
+    to limb_planes_plain."""
+    _check_planes(H, n_limbs)
+    if _kernel_device(H) == "cpu":
+        return limb_planes_plain(H, n_limbs)
+    _require(H.data_ptr() % 16 == 0, "H must be 16-byte aligned")
+    out = torch.empty((n_limbs, *H.shape), dtype=torch.uint8, device=H.device)
+    _cuda_call(_cuda.lib().kmerdb_limb_planes, H.data_ptr(), out.data_ptr(),
+               H.numel(), n_limbs, device=H.device)
+    limb_planes.launches += 1
+    return out
+
+
+limb_planes.launches = 0
+
+
+def limb_planes_plain(H: torch.Tensor, n_limbs: int) -> torch.Tensor:
+    """Plain PyTorch version of limb_planes, on any device."""
+    _check_planes(H, n_limbs)
+    h = H.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([(h >> (H_LIMB_BITS * l)) & 0xFF
+                        for l in range(n_limbs)]).to(torch.uint8)
 
 
 def _check_unpacked_gram(B, w, n_limbs) -> None:

@@ -1,7 +1,8 @@
-"""Rate of the unpacked Gram's block (csrc/gram_u8.cuh) on one CUDA card.
+"""Rate of the unpacked block (csrc/gram_u8.cuh) on one CUDA card.
 
-Prints ptxas's registers and spills of the block's three kernels, then,
-each case held to its plain version exactly where the plain version fits:
+Prints ptxas's registers and spills of the block's four kernels (and of
+the query contraction's limb split), then, each case held to its plain
+version exactly where the plain version fits:
 
 * ``gram_u32_tri`` and ``gram_u32`` at the scan tier's chunk shape (P
   10,496 x S 4,096, random 0/1 incidence, random uint32 weights) at 1 and
@@ -9,12 +10,19 @@ each case held to its plain version exactly where the plain version fits:
   limb: a yardstick, not the same function);
 * ``dotonly_s8`` at the kernel sweep's defaults (S 2,048, P 2^17, kt 512,
   tile 128) on signed operands over -128..127, and ``torch._int_mm``;
+* ``matmul_u32_acc`` (csrc/matmul_acc.cu) at new2all's chunk shape (P
+  10,496 x S 4,096) for Q_pad 512 and 128, uint8 H and uint32 H of 4
+  limbs, at one split and at ``matmul_splits``' split of the patterns, and
+  ``torch._int_mm`` of int8 operands of the same shapes (signed, one limb:
+  a yardstick, not the same function);
 * the block rate: ``gram_u32_tri`` (weighted) and ``dotonly_s8``
   (unweighted) at P 2^16 on 136 blocks (S 2,048: about one block an SM)
   and on 528 blocks (S 4,096: two waves of two blocks an SM), in Tops a
   resident block, and ``torch._int_mm``'s full square.
 
-Times are CUDA-event means after a warm-up.  Usage, on a machine with a
+Times are CUDA-event means after a warm-up; the matmul cases also give
+the card's time with their launches queued behind a sleep (no host gap
+between them) and the host's time a call.  Usage, on a machine with a
 CUDA card (exits 1 without one):
 
     python -m kmerdb_tpu_torch.tools.gram_u8_rate
@@ -23,6 +31,7 @@ CUDA card (exits 1 without one):
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -31,7 +40,11 @@ from ..ops import _cuda, gram, sweep
 
 #: the card's blocks of gram_u8.cuh's body in flight: two an SM on 132 SMs
 RESIDENT = 2 * 132
-KERNELS = ("gram_u32_kernel", "sweep_s8_kernel")
+#: clock cycles of the sleep that _queued_ms puts ahead of its launches:
+#: ~5 ms, more than the host takes to queue them
+SLEEP_CYCLES = 10_000_000
+KERNELS = ("gram_u32_kernel", "sweep_s8_kernel", "matmul_acc_kernel",
+           "limb_planes_kernel")
 
 
 def _ms(fn, reps: int) -> float:
@@ -45,6 +58,36 @@ def _ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn over reps runs queued behind a sleep
+    on the stream, so that the host's time between launches is not
+    counted: the card's time for the kernels alone."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _host_us(fn, reps: int) -> float:
+    """Mean host microseconds a call of fn takes to return (its launches
+    queued, not waited for)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return t / reps * 1e6
 
 
 def _ptxas(log: str) -> list:
@@ -64,6 +107,42 @@ def _ptxas(log: str) -> list:
 def _weights(rng, P: int, dev) -> torch.Tensor:
     w = rng.integers(0, 1 << 32, size=P, dtype=np.uint64).astype(np.uint32)
     return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+def _matmul_cases(rng, B: torch.Tensor, dev) -> None:
+    P, S = B.shape
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for Q, n_limbs in ((1024, 1), (512, 1), (512, 4), (128, 1)):
+        if n_limbs == 1:
+            H = torch.from_numpy(rng.integers(0, 256, size=(Q, P),
+                                              dtype=np.uint8)).to(dev)
+        else:
+            H = torch.from_numpy(rng.integers(0, 1 << 32, size=(Q, P),
+                                              dtype=np.uint64)
+                                 .astype(np.uint32).view(np.int32)).to(dev)
+        C0 = torch.from_numpy(rng.integers(0, 1 << 32, size=(Q, S),
+                                           dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32)).to(dev)
+        want = gram.matmul_u32_acc_plain(H, B, C0.clone(), n_limbs=n_limbs)
+        ops = 2.0 * Q * P * S * n_limbs
+        planned = gram.matmul_splits(Q, S, P, n_sm)
+        for k in sorted({1, 2, 4, 8, planned}):
+            C = C0.clone()
+            eq = torch.equal(gram.matmul_u32_acc(H, B, C, n_limbs=n_limbs,
+                                                 k_splits=k), want)
+            def fn():
+                gram.matmul_u32_acc(H, B, C, n_limbs=n_limbs, k_splits=k)
+            t, tq = _ms(fn, 10), _queued_ms(fn, 10)
+            print(f"matmul_u32_acc Q {Q} P {P} S {S} limbs {n_limbs} "
+                  f"k_splits {k} ({(Q // 128) * (S // 128) * k} blocks): "
+                  f"== plain {eq}, {t:.4f} ms, {ops / t / 1e9:.1f} Tops; "
+                  f"queued {tq:.4f} ms, {ops / tq / 1e9:.1f} Tops; host "
+                  f"{_host_us(fn, 10):.1f} us a call", flush=True)
+        A = torch.from_numpy(rng.integers(-128, 128, size=(Q, P),
+                                          dtype=np.int8)).to(dev)
+        print(f"torch._int_mm Q {Q} P {P} S {S}: "
+              f"{_ms(lambda: torch._int_mm(A, B), 10):.4f} ms", flush=True)
+        del H, C0, want, A
 
 
 def run() -> None:
@@ -93,7 +172,9 @@ def run() -> None:
                   f"{t:.4f} ms, {ops / t / 1e9:.1f} Tops", flush=True)
     Bt = B.T.contiguous()
     print(f"torch._int_mm P {P} S {S}: {_ms(lambda: torch._int_mm(Bt, B), 10):.4f} ms")
-    del B, Bt
+    del Bt
+    _matmul_cases(rng, B, dev)
+    del B
 
     S, P, kt, tile = 2048, 1 << 17, 512, 128
     Bi, Bj = (torch.from_numpy(rng.integers(-128, 128, size=(P, S),

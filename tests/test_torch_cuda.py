@@ -231,8 +231,8 @@ def test_all2all_device_rows_matches_host_tier(card, monkeypatch,
     (128, 512, 256, False, 1), (256, 1024, 384, True, 3),
     (128, 384, 128, True, 4)])
 def test_matmul_acc_kernel_matches_plain(card, Q, P, S, wide, n_limbs):
-    """uint8 H over every byte 0..255 (the unsigned dp4a), uint32 H of 3
-    and of 4 limbs at 2^31 and above; C seeded non-zero."""
+    """uint8 H over every byte 0..255 (the .u8 mma), uint32 H of 3 and of 4
+    limbs at 2^31 and above; C seeded non-zero."""
     rng = np.random.default_rng(Q + P + S)
     B = torch.from_numpy((rng.random((P, S)) < 0.3).astype(np.int8)).to(card)
     if wide:
@@ -398,6 +398,80 @@ def test_matmul_u32_kernel_matches_plain(card, Q, P, S, wide, n_limbs):
     torch.cuda.synchronize()
     assert gram.matmul_u32.launches == n + 1
     assert torch.equal(got, gram.matmul_u32_plain(H, B, n_limbs=n_limbs))
+
+
+def _matmul_operands(card, rng, Q, P, S, n_limbs):
+    """0/1 B, H over every byte (uint8) or of n_limbs limbs at its top
+    bit and above (uint32), C seeded at 2^31 and above."""
+    B = torch.from_numpy((rng.random((P, S)) < 0.3).astype(np.int8)).to(card)
+    if n_limbs == 1:
+        H = rng.integers(0, 256, size=(Q, P), dtype=np.uint8)
+        H[0, :256] = np.arange(256)
+    else:
+        H = rng.integers(1 << (8 * n_limbs - 1), 1 << (8 * n_limbs),
+                         size=(Q, P), dtype=np.uint64)
+        H = H.astype(np.uint32).view(np.int32)
+    C = _u32(rng, (Q, S)) | np.uint32(1 << 31)
+    return (torch.from_numpy(H).to(card), B,
+            torch.from_numpy(C.view(np.int32)).to(card))
+
+
+#: (Q, P, S, n_limbs, k_splits): the 76-query flush and a mesh slot (Q_pad
+#: 128) against the scale database's chunk at the planner's split (None);
+#: uneven splits (5 and 82 stages); 2 and 3 limbs over several splits
+MATMUL_SPLIT_CASES = [
+    (128, 10_496, 4096, 1, None), (128, 640, 256, 1, 3),
+    (256, 10_496, 384, 1, 5), (128, 1024, 512, 2, 3),
+    (256, 1536, 256, 3, 7)]
+
+
+@pytest.mark.parametrize("Q,P,S,n_limbs,k_splits", MATMUL_SPLIT_CASES)
+def test_matmul_split_k_matches_plain(card, Q, P, S, n_limbs, k_splits):
+    """matmul_u32_acc and matmul_u32 over a split-K grid (red.global.add
+    into C) equal their plain versions exactly."""
+    rng = np.random.default_rng(Q + P + S + n_limbs)
+    H, B, C = _matmul_operands(card, rng, Q, P, S, n_limbs)
+    planned = gram.matmul_splits(
+        Q, S, P, torch.cuda.get_device_properties(card).multi_processor_count)
+    assert (k_splits or planned) > 1
+    n = gram.matmul_u32_acc.launches, gram.matmul_u32.launches
+    plain = gram.matmul_u32_acc_plain(H, B, C.clone(), n_limbs=n_limbs)
+    gram.matmul_u32_acc(H, B, C, n_limbs=n_limbs, k_splits=k_splits)
+    fresh = gram.matmul_u32(H, B, n_limbs=n_limbs, k_splits=k_splits)
+    torch.cuda.synchronize()
+    assert (gram.matmul_u32_acc.launches, gram.matmul_u32.launches) == \
+        (n[0] + 1, n[1] + 1)
+    assert torch.equal(C, plain)
+    assert torch.equal(fresh, gram.matmul_u32_plain(H, B, n_limbs=n_limbs))
+
+
+def test_matmul_past_the_flush(card):
+    """2^23 + 2^16 patterns of H byte 255 against an all-ones B in one
+    split: past the block's flush of 2^23 patterns, and every count, 255 P
+    mod 2^32, past 2^31 (255 (2^23 + 256) is not)."""
+    P = (1 << 23) + (1 << 16)
+    H = torch.full((128, P), 255, dtype=torch.uint8, device=card)
+    B = torch.ones((P, 128), dtype=torch.int8, device=card)
+    C = torch.zeros((128, 128), dtype=torch.int32, device=card)
+    gram.matmul_u32_acc(H, B, C, n_limbs=1, k_splits=1)
+    torch.cuda.synchronize()
+    assert P * 255 > 1 << 31
+    want = int(np.uint32(P * 255 % (1 << 32)).view(np.int32))
+    assert torch.equal(C, torch.full_like(C, want))
+
+
+@pytest.mark.parametrize("n_limbs", [1, 2, 3, 4])
+def test_limb_planes_kernel_matches_plain(card, n_limbs):
+    """Words at 2^31 and above, and every byte value in each limb."""
+    rng = np.random.default_rng(40 + n_limbs)
+    H = _u32(rng, (256, 384)) | np.uint32(1 << 31)
+    H[0, :256] = np.arange(256, dtype=np.uint32) * 0x01010101
+    H = torch.from_numpy(H.view(np.int32)).to(card)
+    n = gram.limb_planes.launches
+    got = gram.limb_planes(H, n_limbs)
+    torch.cuda.synchronize()
+    assert gram.limb_planes.launches == n + 1
+    assert torch.equal(got, gram.limb_planes_plain(H, n_limbs))
 
 
 @pytest.mark.skipif(not native.available, reason="no native host runtime")
