@@ -9,14 +9,15 @@ one per case), each with its seconds:
 1. environment: torch, CUDA, and the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
 2. the kernel build (one nvcc per source, in parallel), with ptxas's
-   registers, shared memory and spill bytes of the kernels on the int8
-   tensor cores, which their records in the kernels' line carry: the
-   packed Gram's four (gram_pk.cuh's block: the triangle, stripe and cross
-   Grams and the sweep's int8) and the unpacked block's four (gram_u8.cuh:
-   gram_u32_tri, gram_u32, the sweep's dotonly_s8 and the query
-   contraction's matmul_acc_kernel, the records matmul_u32_acc and
+   registers, shared memory and spill bytes of the kernels on the tensor
+   cores, which their records in the kernels' line carry: on the int8
+   ones the packed Gram's four (gram_pk.cuh's block: the triangle, stripe
+   and cross Grams and the sweep's int8) and the unpacked block's four
+   (gram_u8.cuh: gram_u32_tri, gram_u32, the sweep's dotonly_s8 and the
+   query contraction's matmul_acc_kernel, the records matmul_u32_acc and
    matmul_u32, whose shared memory is dynamic: the library's
-   kmerdb_gram_u8_smem_bytes);
+   kmerdb_gram_u8_smem_bytes); on the bf16 ones the sweep's dotonly and
+   dotonly_T (gram_bf16.cuh, dynamic: kmerdb_gram_bf16_smem_bytes);
 3. the 4,096-sample x 30 kbp scale corpus (the ICTV-scale stand-in of
    bench.py) and its database, built through the port's CLI entry point;
 4. the matrix route's kernels against their plain PyTorch versions on the
@@ -149,11 +150,18 @@ one per case), each with its seconds:
     Gram variants in ``csrc/gram_sweep.cu``): (a) each variant against its
     plain version, exactly, at S 512, P 8,192, (kt, tile) (512, 128) and
     (1024, 256), Bi != Bj, weights of 128 and 256 and above, C seeded
-    non-zero; (b) the tool's ``run_variant`` of each at its defaults (S
-    2,048, P 2^20, 2^17 for ``dotonly*``, kt 512, tile 128; a chain of 1 +
-    5 calls, the launch counters reset before it and read after), then one
-    call against the plain version, exactly, with the plain version's
-    time, and for ``dotonly_s8`` ``torch._int_mm`` on the same operands;
+    non-zero, and ``dotonly``, ``dotonly_T`` (bf16 tensor cores, split K)
+    also on half-integer operands in {-1, -0.5, 0, 0.5, 1, 1.5}, where each
+    K block's truncation shows; (b) the tool's ``run_variant`` of each at
+    its defaults (S 2,048, P 2^20, 2^17 for ``dotonly*``, kt 512, tile 128;
+    a chain of 1 + 5 calls, the launch counters reset before it and read
+    after), then one call against the plain version, exactly, with the
+    plain version's time, and the tool's yardstick on the same operands
+    over the full square (``kernel_sweep.library_call``): ``torch._int_mm``
+    for ``dotonly_s8``, and for ``dotonly`` and ``dotonly_T``
+    ``torch.mm(..., out_dtype=torch.float32)`` (cuBLAS bf16), whose result,
+    truncated, on the lower tiles and added to C, must equal the kernel's
+    (``library_equal``);
     (c) ``sweep_on_db`` on the 4,096-sample database at kts 256, 512, 1024 x
     tiles 128, 256 (``kernel_bench``; its ``gram_pk_tri`` launches those of
     its chains, the knobs restored); (d) the ``int8`` variant equals
@@ -164,9 +172,10 @@ PyTorch call that computes the same function where one exists
 (``library_ms``, else null), and its bound: the larger of its integer
 operations over the int8 peak (the bf16 peak for the sweep's bf16
 variants) and its bytes (inputs read once, outputs written once) over the
-memory rate, all of an H100 SXM at 700 W; the kernels on the int8 tensor
-cores also hold ptxas's ``registers`` and ``spill_bytes`` and their
-``smem_bytes``; the query contraction's ``library_ms`` is its yardstick.  The next-to-last line
+memory rate, all of an H100 SXM at 700 W; the kernels on the tensor
+cores (int8 and bf16) also hold ptxas's ``registers`` and ``spill_bytes``
+and their ``smem_bytes``; the query contraction's ``library_ms`` is its
+yardstick.  The next-to-last line
 is a JSON object of the kernels, the last ``{"ok": true, "device":
 {...}}``.  A failure exits non-zero without them.
 The script and the port import nothing of JAX: an import blocker refuses
@@ -1294,17 +1303,20 @@ SWEEP_BODY = {"bf16": 72, "bf16_ns": 72, "int8": 88, "nodot": 104,
               "dotonly": 116, "dotonly_T": 116, "dotonly_s8": 116}
 
 
-def _sweep_operands(torch, sweep, variant, S, P, rng, dev) -> tuple:
+def _sweep_operands(torch, sweep, variant, S, P, rng, dev,
+                    halves=False) -> tuple:
     """(w, Bi, Bj): Bi != Bj, weights over every bit with 127, 128, 255
-    and 256 among them (each body masks its own)."""
+    and 256 among them (each body masks its own); with `halves`, the
+    unpacked operands' values in {-1, -0.5, 0, 0.5, 1, 1.5}."""
     if variant in sweep.PACKED:
         Bi, Bj = (torch.from_numpy(rng.integers(0, 256, size=(P // 8, S),
                                                 dtype=np.uint8)).to(dev)
                   for _ in range(2))
     else:
-        Bi, Bj = (torch.from_numpy(rng.integers(0, 2, size=(P, S),
-                                                dtype=np.int8)).to(dev)
-                  for _ in range(2))
+        Bi, Bj = (torch.from_numpy(
+            rng.integers(-2, 4, size=(P, S)).astype(np.float32) / 2
+            if halves else rng.integers(0, 2, size=(P, S), dtype=np.int8))
+            .to(dev) for _ in range(2))
         if variant == "dotonly_T":
             Bi = Bi.T.contiguous()
         dt = sweep.operand_dtype(variant)
@@ -1324,9 +1336,11 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
                  say) -> dict:
     """Phase 23: the kernel sweep (kmerdb_tpu_torch/tools/kernel_sweep.py,
     csrc/gram_sweep.cu).  (a) each variant == its plain version, exactly,
-    at S 512, P 8,192 and two geometries; (b) the tool's run_variant of
-    each at its defaults, the launch counters reset before and read after,
-    then one call against the plain version, timed; (c) sweep_on_db on the
+    at S 512, P 8,192 and two geometries, dotonly and dotonly_T also on
+    half-integer operands; (b) the tool's run_variant of each at its
+    defaults, the launch counters reset before and read after, then one
+    call against the plain version, timed, and the dotonly variants'
+    library call held to the kernel; (c) sweep_on_db on the
     4,096-sample database at kts 256, 512, 1024 x tiles 128, 256, its
     gram_u32_pk_tri launches those of its chains; (d) the int8 variant at
     phase 4's shape equals gram_u32_pk_tri there and takes its time within
@@ -1349,9 +1363,23 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
                    f"sweep {v} differs from its plain version (kt {kt}, "
                    f"tile {tile}, max_abs_err={err})")
             res[v]["errs"].append(err)
+        for v in sweep.SPLIT:
+            w, Bi, Bj = _sweep_operands(torch, sweep, v, 512, 8192, rng, dev,
+                                        halves=True)
+            C0 = _random_c(torch, rng, 512, dev)
+            Ck = sweep.KERNELS[v](w, Bi, Bj, C0.clone(), kt=kt, tile=tile)
+            Cp = sweep.plain(v, w, Bi, Bj, C0.clone(), kt=kt, tile=tile)
+            torch.cuda.synchronize()
+            err = _err(torch, Ck, Cp)
+            _check(torch.equal(Ck, Cp) and not torch.equal(Ck, C0),
+                   f"sweep {v} differs from its plain version on half-"
+                   f"integer operands (kt {kt}, tile {tile}, "
+                   f"max_abs_err={err})")
+            res[v]["errs"].append(err)
     say(f"[23a sweep] {time.perf_counter() - t:.2f} s; all "
         f"{len(sweep.VARIANTS)} variants == plain at S 512, P 8192, (kt, "
-        f"tile) (512, 128) and (1024, 256), Bi != Bj, C seeded non-zero")
+        f"tile) (512, 128) and (1024, 256), Bi != Bj, C seeded non-zero; "
+        f"{' and '.join(sweep.SPLIT)} also on half-integer operands")
 
     for v in sweep.VARIANTS:
         t = time.perf_counter()
@@ -1374,6 +1402,17 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
                                     f"(max_abs_err={err})")
         res[v].update(rec, launches=launches, plain_ms=plain_ms)
         res[v]["errs"].append(err)
+        lib_note = ""
+        if v in sweep.SPLIT and rec["library_ms"] is not None:
+            # the library's f32 square, truncated, on the lower tiles
+            L = kernel_sweep.library_call(v, *ops[1:])()
+            Cl = sweep._lower_add(C0.clone(), torch.trunc(L).to(torch.int64)
+                                  & 0xFFFFFFFF, SWEEP_TILE)
+            res[v]["library_equal"] = torch.equal(Cl, Ck)
+            _check(res[v]["library_equal"], f"sweep {v}: the library call's "
+                                            f"result differs from the kernel's")
+            lib_note = f", library_equal {res[v]['library_equal']}"
+            del L, Cl
         del ops, C0, Ck, Cp
         torch.cuda.empty_cache()
         say(f"[23b sweep {v}] {time.perf_counter() - t:.2f} s; S {SWEEP_S}, "
@@ -1381,9 +1420,10 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
             f"{rec['per_call_ms']:.4f} ms a call ({rec['tops']:.2f} Tops), "
             f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), library "
-            + (f"{rec['library_ms']:.4f} ms (torch._int_mm, the full square)"
-               if rec["library_ms"] is not None else "none")
-            + f", {launches} launches, == plain")
+            + (f"{rec['library_ms']:.4f} ms ({rec['library_op']})"
+               if rec["library_ms"] is not None
+               else f"none ({rec.get('library_error', 'no call')})")
+            + f"{lib_note}, {launches} launches, == plain")
 
     t = time.perf_counter()
     _reset_launches(gram)
@@ -1432,9 +1472,9 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
     return {"variants": res, "on_db": rows, "int8_ratio": ratio}
 
 
-#: the kernels on the int8 tensor cores by their records' names, with a
-#: part of their (mangled) names: the packed Gram's (gram_pk.cuh's block)
-#: and the unpacked Gram's (gram_u8.cuh's block)
+#: the kernels on the tensor cores by their records' names, with a part of
+#: their (mangled) names: the packed Gram's (gram_pk.cuh's block), the
+#: unpacked Gram's (gram_u8.cuh's block) and the bf16 one (gram_bf16.cuh's)
 MMA_KERNELS = {"gram_pk_tri": "gram_pk_tri_kernel",
                "gram_pk_rows": "gram_pk_rows_kernel",
                "cross_u32_pk": "cross_pk_kernel",
@@ -1443,17 +1483,21 @@ MMA_KERNELS = {"gram_pk_tri": "gram_pk_tri_kernel",
                "gram_u32": "gram_u32_kernelILb0E",
                "sweep_dotonly_s8": "sweep_s8_kernel",
                "matmul_u32_acc": "matmul_acc_kernel",
-               "matmul_u32": "matmul_acc_kernel"}
+               "matmul_u32": "matmul_acc_kernel",
+               "sweep_dotonly": "sweep_dot_bf16_kernelILb0E",
+               "sweep_dotonly_T": "sweep_dot_bf16_kernelILb1E"}
 #: those of gram_u8.cuh's block, whose shared memory is dynamic
 U8_KERNELS = ("gram_u32_tri", "gram_u32", "sweep_dotonly_s8",
               "matmul_u32_acc", "matmul_u32")
+#: those of gram_bf16.cuh's block, dynamic too
+BF16_KERNELS = ("sweep_dotonly", "sweep_dotonly_T")
 
 
-def _mma_resources(log: str, u8_smem: int) -> dict:
+def _mma_resources(log: str, u8_smem: int, bf16_smem: int) -> dict:
     """MMA_KERNELS' registers, spill bytes (stores + loads) and shared
     memory by record name, from nvcc's -Xptxas -v output (static shared
-    memory; U8_KERNELS add their `u8_smem` dynamic bytes); fails if one is
-    missing."""
+    memory; U8_KERNELS add their `u8_smem` dynamic bytes, BF16_KERNELS
+    their `bf16_smem`); fails if one is missing."""
     out, recs = {}, []
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -1470,7 +1514,8 @@ def _mma_resources(log: str, u8_smem: int) -> dict:
                 smem = re.search(r"(\d+) bytes smem", ln)
                 out[rec].update(registers=int(regs[1]),
                                 smem_bytes=(int(smem[1]) if smem else 0)
-                                + (u8_smem if rec in U8_KERNELS else 0))
+                                + (u8_smem if rec in U8_KERNELS else 0)
+                                + (bf16_smem if rec in BF16_KERNELS else 0))
     _check(all(len(out.get(r, {})) == 3 for r in MMA_KERNELS),
            f"ptxas gave no resources for some of {MMA_KERNELS}: {out}")
     return out
@@ -1558,8 +1603,10 @@ def run(workdir: str) -> list:
             ln.split("info    : ")[1] for ln in _cuda.build_log().splitlines()
             if "registers" in ln))
     mma_res = _mma_resources(_cuda.build_log(),
-                             _cuda.lib().kmerdb_gram_u8_smem_bytes())
-    say("[2 build] int8 tensor-core blocks (gram_pk.cuh, gram_u8.cuh): "
+                             _cuda.lib().kmerdb_gram_u8_smem_bytes(),
+                             _cuda.lib().kmerdb_gram_bf16_smem_bytes())
+    say("[2 build] tensor-core blocks (int8: gram_pk.cuh, gram_u8.cuh; "
+        "bf16: gram_bf16.cuh): "
         + "; ".join(f"{rec} {_fmt(r)}" for rec, r in mma_res.items()))
 
     t = time.perf_counter()

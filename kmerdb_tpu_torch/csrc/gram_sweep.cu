@@ -7,9 +7,10 @@
 // the same grid as gram_pk_tri.cu: one block of 256 threads per 128 x 128
 // output block whose coarse tile (edge `tile`) lies on or below the
 // diagonal, in the tri_coords order; the TPU's K grid axis (P / kt blocks)
-// is a loop inside the block.  Blocks above the coarse diagonal get no
-// thread block, so C keeps its contents there, as the aliased TPU output
-// does.  c is uint32[S, S] (int32 storage), updated in place; w uint32[P].
+// is a loop inside the block (dotonly and dotonly_t: split over runs of
+// whole K blocks, below).  Blocks above the coarse diagonal get no thread
+// block, so C keeps its contents there, as the aliased TPU output does.  c
+// is uint32[S, S] (int32 storage), updated in place; w uint32[P].
 //
 //   int8        C += Bi^T diag(w & 0x7F) Bj on packed uint8[P/8, S] operands:
 //               gram_pk.cuh's block at one limb, the production s8 body
@@ -24,28 +25,41 @@
 //               b-major (row b * kt/8 + r is bit b of byte row r) from the
 //               tile's columns of Bi and Bj.  Needs kt >= tile.
 //   dotonly     C += Bi^T Bj on unpacked bf16[P, S] operands, f32 per K
-//               block, flushed as in bf16 (exact for integer operands whose
-//               block sums stay below 2^24, the tool's 0/1 among them).
-//   dotonly_t   the same with Bi laid out bf16[S, P].
+//               block, truncated into C as in bf16: gram_bf16.cuh's block
+//               (bf16 tensor cores, mma.sync), its PatternRows operand.
+//   dotonly_t   the same with Bi laid out bf16[S, P]: its SampleRows.
 //   dotonly_s8  C += Bi^T Bj on unpacked int8[P, S] operands: gram_u8.cuh's
 //               block in its signed form (int8 tensor cores, mma.sync
 //               .s8.s8), its exact s32 sums added into C mod 2^32 every
 //               2^16 patterns, which equals adding each K block's sum.
 //
 // What bounds them.  Products: the int8 and dotonly_s8 bodies run on the
-// int8 tensor cores (gram_pk.cuh, gram_u8.cuh: 8 warps of 64 x 32 outputs,
-// their bounds there); the bf16 bodies run f32 FMA on the CUDA cores, far
+// int8 tensor cores (gram_pk.cuh, gram_u8.cuh), dotonly and dotonly_t on
+// the bf16 ones (gram_bf16.cuh), all 8 warps of 64 x 32 outputs, their
+// bounds there; bf16 and bf16_ns still run f32 FMA on the CUDA cores, far
 // under the tensor cores' rates, with every operand of the inner loop in
 // shared memory and registers (each thread owns an 8 x 8 block of
 // outputs).  nodot moves bytes and unpacks them; its only arithmetic is the
 // add.  The variants exist to measure these parts against each other on
-// the production block's grid; the bf16 bodies on the tensor cores are
-// later work.
+// the production block's grid; bf16 and bf16_ns on the tensor cores, as a
+// packed row policy of gram_bf16.cuh, are later work.
+//
+// Split K (dotonly, dotonly_t).  The triangle's 136 output blocks at the
+// tool's S of 2,048 would leave the card's 132 SMs, one block each, a
+// second wave of 4; so the grid is n_blocks x k_splits (ops/sweep.py
+// dot_splits picks k_splits), split z taking a run of whole K blocks
+// (split_range), which leaves each K block's truncation as it is.  With
+// one split a block adds its sums into C; with more, split z stores them
+// in its slice of `partials` (uint32[k_splits, n_blocks, 128, 128], the
+// caller's scratch) and dot_split_sum_kernel adds the slices into C's
+// lower blocks in one pass.  uint32 addition mod 2^32 is associative and
+// commutative: C is bit-identical at any k_splits.
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gram_bf16.cuh"
 #include "gram_pk.cuh"
 #include "gram_u8.cuh"
 #include "tri.cuh"
@@ -56,21 +70,22 @@ constexpr int kBlock = 128;           // output block edge
 constexpr int kThreads = 256;         // 16 x 16 threads, 8 x 8 outputs each
 constexpr int kStage = 64;            // patterns staged at a time
 constexpr int kStageRows8 = kStage / 8;   // packed rows a stage
+constexpr int kMaxDevices = 64;           // devices whose attribute is remembered
 
-enum Variant { kBf16, kBf16Ns, kNodot, kDotonly, kDotonlyT };
+enum Variant { kBf16, kBf16Ns, kNodot };
 
-// The output block of blockIdx.x: its row and column in C, and its place
+// Output block b of the triangle: its row and column in C, and its place
 // (sr, sc) inside its coarse tile.
 struct Coords {
   int64_t row0, col0;
   int sr, sc, ci, cj;
 };
 
-__device__ __forceinline__ Coords coords(int sub) {
+__device__ __forceinline__ Coords coords(int b, int sub) {
   Coords k;
   const int per_tile = sub * sub;
-  tri_coords(blockIdx.x / per_tile, k.ci, k.cj);
-  const int s = blockIdx.x % per_tile;
+  tri_coords(b / per_tile, k.ci, k.cj);
+  const int s = b % per_tile;
   k.sr = s / sub;
   k.sc = s % sub;
   k.row0 = static_cast<int64_t>(k.ci * sub + k.sr) * kBlock;
@@ -118,17 +133,15 @@ struct SmemBf16 {
   float w[kStage];                                // stage weights (bf16)
 };
 
-// The bf16 family.  Stage patterns: for the packed variants the 64
-// patterns (bit b, byte row r0 + r), r < 8, held at a[b * 8 + r]; for the
-// unpacked ones the rows k0 .. k0 + 63 of the K block.
+// The packed bf16 family.  Stage patterns: the 64 patterns (bit b, byte
+// row r0 + r), r < 8, held at a[b * 8 + r].
 template <int V>
 __global__ void __launch_bounds__(kThreads)
-sweep_bf16_kernel(const uint32_t* __restrict__ w, const void* __restrict__ bi_,
-                  const void* __restrict__ bj_, uint32_t* __restrict__ c, int64_t p,
+sweep_bf16_kernel(const uint32_t* __restrict__ w, const uint8_t* __restrict__ bi,
+                  const uint8_t* __restrict__ bj, uint32_t* __restrict__ c, int64_t p,
                   int64_t s, int kt, int sub) {
   __shared__ SmemBf16 sm;
-  constexpr bool kPacked = V == kBf16 || V == kBf16Ns || V == kNodot;
-  const Coords k = coords(sub);
+  const Coords k = coords(blockIdx.x, sub);
   const int tid = threadIdx.x;
   const int ty = tid / 16;
   const int tx = tid % 16;
@@ -151,56 +164,26 @@ sweep_bf16_kernel(const uint32_t* __restrict__ w, const void* __restrict__ bi_,
 #pragma unroll
       for (int n = 0; n < 8; ++n) part[m][n] = 0.0f;
 
-    for (int st = 0; st < (kPacked ? kb : kt); st += kPacked ? kStageRows8 : kStage) {
+    for (int st = 0; st < kb; st += kStageRows8) {
       __syncthreads();  // the previous stage's readers are done
-      if constexpr (kPacked) {
-        const uint8_t* bi = static_cast<const uint8_t*>(bi_);
-        const uint8_t* bj = static_cast<const uint8_t*>(bj_);
-        const int64_t r_base = kblk / 8 + st;  // first byte row of the stage
-        if (V == kBf16 && tid < kStage) {
-          // weight of (bit b, row st + r): pk_weight_order of the K block
-          const int b = tid / kStageRows8;
-          const int r = tid % kStageRows8;
-          sm.w[tid] = static_cast<float>(w[kblk + static_cast<int64_t>(b) * kb + st + r] & 0xFFu);
-        }
-        if (V == kBf16) __syncthreads();
-        for (int it = tid; it < kStageRows8 * kBlock; it += kThreads) {
-          const int r = it / kBlock;
-          const int col = it % kBlock;
-          const uint32_t xa = bi[(r_base + r) * s + a_col + col];
-          const uint32_t xb = bj[(r_base + r) * s + b_col + col];
+      const int64_t r_base = kblk / 8 + st;  // first byte row of the stage
+      if (V == kBf16 && tid < kStage) {
+        // weight of (bit b, row st + r): pk_weight_order of the K block
+        const int b = tid / kStageRows8;
+        const int r = tid % kStageRows8;
+        sm.w[tid] = static_cast<float>(w[kblk + static_cast<int64_t>(b) * kb + st + r] & 0xFFu);
+      }
+      if (V == kBf16) __syncthreads();
+      for (int it = tid; it < kStageRows8 * kBlock; it += kThreads) {
+        const int r = it / kBlock;
+        const int col = it % kBlock;
+        const uint32_t xa = bi[(r_base + r) * s + a_col + col];
+        const uint32_t xb = bj[(r_base + r) * s + b_col + col];
 #pragma unroll
-          for (int b = 0; b < 8; ++b) {
-            const float scale = V == kBf16 ? sm.w[b * kStageRows8 + r] : 1.0f;
-            sm.a[b * kStageRows8 + r][col] = __float2bfloat16(((xa >> b) & 1u) ? scale : 0.0f);
-            sm.b[b * kStageRows8 + r][col] = __float2bfloat16(((xb >> b) & 1u) ? 1.0f : 0.0f);
-          }
-        }
-      } else {
-        const __nv_bfloat16* bi = static_cast<const __nv_bfloat16*>(bi_);
-        const __nv_bfloat16* bj = static_cast<const __nv_bfloat16*>(bj_);
-        const int64_t k0 = kblk + st;
-        // 16-byte loads: 8 bf16 of one row
-        for (int it = tid; it < kStage * kBlock / 8; it += kThreads) {
-          const int row = it / (kBlock / 8);
-          const int col = (it % (kBlock / 8)) * 8;
-          *reinterpret_cast<uint4*>(&sm.b[row][col]) =
-              *reinterpret_cast<const uint4*>(bj + (k0 + row) * s + b_col + col);
-          if (V == kDotonly) {
-            *reinterpret_cast<uint4*>(&sm.a[row][col]) =
-                *reinterpret_cast<const uint4*>(bi + (k0 + row) * s + a_col + col);
-          }
-        }
-        if (V == kDotonlyT) {
-          // bi is [S, P]: 8 consecutive patterns of one sample a load
-          for (int it = tid; it < kBlock * kStage / 8; it += kThreads) {
-            const int col = it / (kStage / 8);
-            const int row = (it % (kStage / 8)) * 8;
-            const uint4 raw = *reinterpret_cast<const uint4*>(bi + (a_col + col) * p + k0 + row);
-            const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) sm.a[row + e][col] = v[e];
-          }
+        for (int b = 0; b < 8; ++b) {
+          const float scale = V == kBf16 ? sm.w[b * kStageRows8 + r] : 1.0f;
+          sm.a[b * kStageRows8 + r][col] = __float2bfloat16(((xa >> b) & 1u) ? scale : 0.0f);
+          sm.b[b * kStageRows8 + r][col] = __float2bfloat16(((xb >> b) & 1u) ? 1.0f : 0.0f);
         }
       }
       __syncthreads();
@@ -254,7 +237,7 @@ __global__ void __launch_bounds__(gram_u8::kThreads, gram_u8::kMinBlocks)
 sweep_s8_kernel(const int8_t* __restrict__ bi, const int8_t* __restrict__ bj,
                 uint32_t* __restrict__ c, int64_t p, int64_t s, int sub) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const Coords k = coords(sub);
+  const Coords k = coords(blockIdx.x, sub);
   const gram_u8::PatternRows rows(reinterpret_cast<const uint8_t*>(bi) + k.row0, s);
   gram_u8::block<false, false>(smem, rows, reinterpret_cast<const uint8_t*>(bj) + k.col0, s,
                                nullptr, 0, static_cast<int>(p / gram_u8::kStage), 1,
@@ -267,9 +250,74 @@ sweep_int8_kernel(const uint32_t* __restrict__ w, const uint8_t* __restrict__ bi
                   const uint8_t* __restrict__ bj, uint32_t* __restrict__ c, int64_t p,
                   int64_t s, int kt, int sub) {
   __shared__ gram_pk::Smem sm;
-  const Coords k = coords(sub);
+  const Coords k = coords(blockIdx.x, sub);
   gram_pk::block(sm, bi, s, bj, s, w, p / 8, 1, kt / 8, k.row0, k.col0, c + k.row0 * s + k.col0,
                  s);
+}
+
+// dotonly (kT false: Bi bf16[P, S]) and dotonly_t (kT true: Bi bf16[S,
+// P]): gram_bf16.cuh's block over split z's run of K blocks of output
+// block b, blockIdx.x = z * n_blocks + b; into C with one split, else into
+// its slice of `partials`.
+template <bool kT>
+__global__ void __launch_bounds__(gram_bf16::kThreads, gram_bf16::kMinBlocks)
+sweep_dot_bf16_kernel(const uint16_t* __restrict__ bi, const uint16_t* __restrict__ bj,
+                      uint32_t* __restrict__ c, uint32_t* __restrict__ partials, int64_t p,
+                      int64_t s, int kt, int sub, int n_blocks) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int b = static_cast<int>(blockIdx.x % n_blocks);
+  const int z = static_cast<int>(blockIdx.x / n_blocks);
+  const int k_splits = static_cast<int>(gridDim.x / n_blocks);
+  const Coords k = coords(b, sub);
+  int kb0, n_kb;
+  split_range(static_cast<int>(p / kt), k_splits, z, kb0, n_kb);
+  const int st_kt = kt / gram_bf16::kStage;
+  const bool split = k_splits > 1;
+  uint32_t* out = split ? partials + (static_cast<int64_t>(z) * n_blocks + b) * kBlock * kBlock
+                        : c + k.row0 * s + k.col0;
+  const int64_t ld_out = split ? kBlock : s;
+  const int64_t p0 = static_cast<int64_t>(kb0) * kt;
+  if constexpr (kT) {
+    const gram_bf16::SampleRows rows(bi + k.row0 * p, p);
+    gram_bf16::block(smem, rows, bj + k.col0, s, p0, n_kb * st_kt, st_kt, out, ld_out, split);
+  } else {
+    const gram_bf16::PatternRows rows(bi + k.row0, s);
+    gram_bf16::block(smem, rows, bj + k.col0, s, p0, n_kb * st_kt, st_kt, out, ld_out, split);
+  }
+}
+
+// C's output block blockIdx.x += the k_splits slices' sums of it: rows
+// 8 blockIdx.y .. + 7, one uint4 of four cells a thread.
+__global__ void __launch_bounds__(256)
+dot_split_sum_kernel(const uint4* __restrict__ partials, uint32_t* __restrict__ c, int64_t s,
+                     int sub, int n_blocks, int k_splits) {
+  const Coords k = coords(blockIdx.x, sub);
+  const int q = blockIdx.y * 256 + threadIdx.x;  // the uint4 in the block
+  const int row = q / (kBlock / 4);
+  const int col = 4 * (q % (kBlock / 4));
+  uint4* dst = reinterpret_cast<uint4*>(c + (k.row0 + row) * s + k.col0 + col);
+  const uint4* src = partials + static_cast<int64_t>(blockIdx.x) * (kBlock * kBlock / 4) + q;
+  const int64_t slice = static_cast<int64_t>(n_blocks) * (kBlock * kBlock / 4);
+  uint4 acc = *dst;
+  for (int z = 0; z < k_splits; ++z) {
+    const uint4 v = src[z * slice];
+    acc = make_uint4(acc.x + v.x, acc.y + v.y, acc.z + v.z, acc.w + v.w);
+  }
+  *dst = acc;
+}
+static_assert(kBlock * kBlock / 4 == 256 * (kBlock / 8), "8 rows of uint4 a thread block");
+
+// gram_bf16::allow_smem for sweep_dot_bf16_kernel<kT>, once a device: each
+// call costs host time (matmul_acc.cu's allow_smem_once).
+template <bool kT>
+cudaError_t allow_dot_smem_once() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = gram_bf16::allow_smem(sweep_dot_bf16_kernel<kT>);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
 }
 
 int64_t n_blocks(int64_t s, int tile) {
@@ -285,9 +333,38 @@ int launch_bf16(const void* w, const void* bi, const void* bj, void* c, int64_t 
   if (blocks == 0 || p == 0) return 0;
   sweep_bf16_kernel<V><<<static_cast<unsigned>(blocks), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(w), bi, bj, static_cast<uint32_t*>(c), p, s, kt,
-      tile / kBlock);
+      static_cast<const uint32_t*>(w), static_cast<const uint8_t*>(bi),
+      static_cast<const uint8_t*>(bj), static_cast<uint32_t*>(c), p, s, kt, tile / kBlock);
   return static_cast<int>(cudaGetLastError());
+}
+
+// dotonly / dotonly_t over k_splits runs of K blocks (the top of the file);
+// partials is uint32[k_splits, n_blocks, 128, 128] scratch, unused at one
+// split.
+template <bool kT>
+int launch_dot(const void* bi, const void* bj, void* c, int64_t p, int64_t s, int kt, int tile,
+               int k_splits, void* partials, void* stream) {
+  const int64_t blocks = n_blocks(s, tile);
+  if (blocks == 0 || p == 0) return 0;
+  if (kt % gram_bf16::kStage != 0 || p % kt != 0 || k_splits < 1 || k_splits > p / kt ||
+      blocks * k_splits > INT32_MAX || (k_splits > 1 && partials == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_dot_smem_once<kT>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  sweep_dot_bf16_kernel<kT><<<static_cast<unsigned>(blocks * k_splits), gram_bf16::kThreads,
+                              gram_bf16::kSmemBytes, st>>>(
+      static_cast<const uint16_t*>(bi), static_cast<const uint16_t*>(bj),
+      static_cast<uint32_t*>(c), static_cast<uint32_t*>(partials), p, s, kt, tile / kBlock,
+      static_cast<int>(blocks));
+  err = cudaGetLastError();
+  if (err == cudaSuccess && k_splits > 1) {
+    dot_split_sum_kernel<<<dim3(static_cast<unsigned>(blocks), kBlock / 8), 256, 0, st>>>(
+        static_cast<const uint4*>(partials), static_cast<uint32_t*>(c), s, tile / kBlock,
+        static_cast<int>(blocks), k_splits);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -322,15 +399,26 @@ extern "C" int kmerdb_sweep_nodot(const void* w, const void* bi, const void* bj,
   return launch_bf16<kNodot>(w, bi, bj, c, p, s, kt, tile, stream);
 }
 
+// dotonly and dotonly_t take two more: k_splits, the runs of whole K
+// blocks the grid cuts P into (1..P / kt), and `partials`,
+// uint32[k_splits, n_blocks, 128, 128] scratch when k_splits > 1.
 extern "C" int kmerdb_sweep_dotonly(const void* w, const void* bi, const void* bj, void* c,
-                                    int64_t p, int64_t s, int kt, int tile, void* stream) {
-  return launch_bf16<kDotonly>(w, bi, bj, c, p, s, kt, tile, stream);
+                                    int64_t p, int64_t s, int kt, int tile, int k_splits,
+                                    void* partials, void* stream) {
+  (void)w;  // the unpacked product takes no weights
+  return launch_dot<false>(bi, bj, c, p, s, kt, tile, k_splits, partials, stream);
 }
 
 extern "C" int kmerdb_sweep_dotonly_t(const void* w, const void* bi, const void* bj, void* c,
-                                      int64_t p, int64_t s, int kt, int tile, void* stream) {
-  return launch_bf16<kDotonlyT>(w, bi, bj, c, p, s, kt, tile, stream);
+                                      int64_t p, int64_t s, int kt, int tile, int k_splits,
+                                      void* partials, void* stream) {
+  (void)w;
+  return launch_dot<true>(bi, bj, c, p, s, kt, tile, k_splits, partials, stream);
 }
+
+// The dynamic shared memory of a dotonly / dotonly_t block, in bytes
+// (ptxas reports static shared memory only).
+extern "C" int kmerdb_gram_bf16_smem_bytes() { return gram_bf16::kSmemBytes; }
 
 extern "C" int kmerdb_sweep_dotonly_s8(const void* w, const void* bi, const void* bj, void* c,
                                        int64_t p, int64_t s, int kt, int tile, void* stream) {

@@ -46,21 +46,13 @@
 #include <cuda_runtime.h>
 
 #include "gram_u8.cuh"
+#include "tri.cuh"
 
 namespace {
 
 constexpr int kMaxLimbs = 4;        // 8-bit limbs of a uint32 count
 constexpr int kMaxDevices = 64;     // devices whose attribute is remembered
 constexpr int64_t kGridMax = 4096;  // the elementwise kernels' grid; they stride past it
-
-// Split z of k's run of stages out of n: the first n % k splits take one
-// stage more than the rest.
-__device__ __forceinline__ void split_range(int n, int k, int z, int& st0, int& n_st) {
-  const int base = n / k;
-  const int rem = n % k;
-  st0 = z * base + min(z, rem);
-  n_st = base + (z < rem ? 1 : 0);
-}
 
 __global__ void __launch_bounds__(gram_u8::kThreads, gram_u8::kMinBlocks)
 matmul_acc_kernel(const uint8_t* __restrict__ h, const uint8_t* __restrict__ b,

@@ -26,10 +26,12 @@ SOURCES = ("gram_pk_tri.cu", "gram_pk_rows.cu", "cross_pk.cu", "tril_tiles.cu",
            "cast_rows.cu", "filter_colsum.cu", "bounds_zero.cu", "matmul_acc.cu",
            "gram_u32.cu", "gram_sweep.cu")
 #: the C entry points of csrc/gram_sweep.cu, one a variant of
-#: ops/sweep.py, all with the same arguments
-SWEEP_ENTRIES = ("int8", "bf16", "bf16_ns", "nodot", "dotonly", "dotonly_t",
-                 "dotonly_s8")
-HEADERS = ("gram_pk.cuh", "gram_u8.cuh", "mma_s8.cuh", "tri.cuh")
+#: ops/sweep.py, all with the same arguments; SWEEP_SPLIT_ENTRIES take two
+#: more, k_splits and the split sums' scratch
+SWEEP_ENTRIES = ("int8", "bf16", "bf16_ns", "nodot", "dotonly_s8")
+SWEEP_SPLIT_ENTRIES = ("dotonly", "dotonly_t")
+HEADERS = ("gram_bf16.cuh", "gram_pk.cuh", "gram_u8.cuh", "mma_bf16.cuh",
+           "mma_s8.cuh", "tri.cuh")
 #: sm_90a: the Hopper target (plain sm_90 refuses wgmma, which later
 #: kernels will use); -Xptxas -v logs registers, shared memory and spills
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -124,6 +126,7 @@ def lib() -> ctypes.CDLL:
             ("kmerdb_limb_planes", [vp, vp, i64, i32, vp]),
             ("kmerdb_gram_u32", [vp, vp, vp, i64, i64, i32, i32, vp]),
             ("kmerdb_gram_u8_smem_bytes", []),
+            ("kmerdb_gram_bf16_smem_bytes", []),
             ("kmerdb_tril_tiles", [vp, vp, i64, i32, vp]),
             ("kmerdb_gather_tiles",
              [vp, vp, vp, vp, i64, i64, i64, i64, i32, vp]),
@@ -132,7 +135,10 @@ def lib() -> ctypes.CDLL:
             ("kmerdb_filter_colsum", [vp, vp, i64, i64, u32, u32, vp]),
             ("kmerdb_bounds_zero", [vp, vp, i64, i32, u32, u32, vp]),
             *((f"kmerdb_sweep_{v}", [vp, vp, vp, vp, i64, i64, i32, i32, vp])
-              for v in SWEEP_ENTRIES)):
+              for v in SWEEP_ENTRIES),
+            *((f"kmerdb_sweep_{v}",
+               [vp, vp, vp, vp, i64, i64, i32, i32, i32, vp, vp])
+              for v in SWEEP_SPLIT_ENTRIES)):
         fn = getattr(so, name)
         fn.argtypes = args
         fn.restype = i32

@@ -17,7 +17,9 @@ the P patterns in K blocks of kt:
   b-major (row b * kt/8 + r is bit b of byte row r); needs kt >= tile;
 * ``dotonly``, ``dotonly_T``, ``dotonly_s8``: C += Bi^T Bj on unpacked
   bf16[P, S] operands (``dotonly_T``: Bi bf16[S, P]), f32 per K block
-  flushed as above, or int8[P, S] operands with int32 sums.
+  truncated toward zero into C (on the bf16 tensor cores, over a grid split
+  into runs of whole K blocks: ``dot_splits``), or int8[P, S] operands
+  with int32 sums.
 
 w is the P weights in pk_weight_order for kt, uint32 bits in int32
 storage (read by ``int8`` and ``bf16`` only).  Bi and Bj may differ.  Each
@@ -27,7 +29,7 @@ and a plain PyTorch version (``plain``), which the wrapper runs for CPU
 tensors and which ``chip_smoke.py`` compares the kernel with on the card.
 The plain versions of the bf16 family equal the kernels where the f32
 block sums are exact, which integer operands below 2^24 a block are (the
-tool's 0/1 operands and 8-bit weights).
+tool's 0/1 operands and 8-bit weights), and half-integer ones below 2^22.
 """
 
 import torch
@@ -40,6 +42,11 @@ VARIANTS = ("bf16", "bf16_ns", "int8", "nodot", "dotonly", "dotonly_T",
             "dotonly_s8")
 #: the variants over bit-packed operands
 PACKED = ("bf16", "bf16_ns", "int8", "nodot")
+#: the variants whose grid is split over runs of whole K blocks; their
+#: wrappers take ``k_splits=`` (default: dot_splits)
+SPLIT = ("dotonly", "dotonly_T")
+#: dot_splits takes the fewest splits within this factor of a full card
+SPLIT_SLACK = 1.05
 
 
 def operand_dtype(variant: str) -> torch.dtype:
@@ -81,19 +88,58 @@ def _check(variant, w, Bi, Bj, C, kt, tile) -> int:
     return P
 
 
+def n_blocks(S: int, tile: int) -> int:
+    """The 128 x 128 output blocks of the lower triangle of `tile`-edge
+    tiles of an S x S C, the grid of every variant."""
+    nt, sub = S // tile, tile // gram.BLOCK
+    return nt * (nt + 1) // 2 * sub * sub
+
+
+def dot_splits(blocks: int, k_blocks: int, n_sm: int) -> int:
+    """k_splits of the dotonly grid (csrc/gram_sweep.cu): the runs of whole
+    K blocks each of the `blocks` output blocks is cut into, so that the
+    grid fills the card's n_sm SMs, one block each (128 accumulators a
+    thread hold a block above 128 registers).  A grid takes
+    ceil(blocks * z / n_sm) waves of ceil(k_blocks / z) K blocks; this is
+    the fewest splits within SPLIT_SLACK of the best such time or of a full
+    card, each split's sums costing a pass of scratch.  At the tool's
+    defaults (136 blocks, 256 K blocks, 132 SMs): 16, 272 K blocks a
+    block's time against 263.8 on a full card and 512 at one split."""
+    cost = {z: -(-blocks * z // n_sm) * -(-k_blocks // z)
+            for z in range(1, k_blocks + 1)}
+    limit = max(min(cost.values()), SPLIT_SLACK * blocks * k_blocks / n_sm)
+    return min(z for z, c in cost.items() if c <= limit)
+
+
 def _make(variant: str):
     entry = f"kmerdb_sweep_{variant.lower()}"
 
     def kernel(w: torch.Tensor, Bi: torch.Tensor, Bj: torch.Tensor,
-               C: torch.Tensor, *, kt: int, tile: int) -> torch.Tensor:
+               C: torch.Tensor, *, kt: int, tile: int,
+               k_splits: int | None = None) -> torch.Tensor:
         P = _check(variant, w, Bi, Bj, C, kt, tile)
+        _require(k_splits is None or (variant in SPLIT
+                                      and isinstance(k_splits, int)
+                                      and 1 <= k_splits <= P // kt),
+                 f"k_splits is for {' and '.join(SPLIT)} and must lie in "
+                 f"1..P / kt")
         if gram._kernel_device(w, Bi, Bj, C) == "cpu":
             return plain(variant, w, Bi, Bj, C, kt=kt, tile=tile)
         _require(all(t.data_ptr() % 16 == 0 for t in (Bi, Bj, C)),
                  "Bi, Bj and C must be 16-byte aligned")
-        gram._cuda_call(getattr(_cuda.lib(), entry), w.data_ptr(),
-                        Bi.data_ptr(), Bj.data_ptr(), C.data_ptr(), P,
-                        C.shape[0], kt, tile, device=C.device)
+        args = (w.data_ptr(), Bi.data_ptr(), Bj.data_ptr(), C.data_ptr(), P,
+                C.shape[0], kt, tile)
+        if variant in SPLIT:
+            blocks = n_blocks(C.shape[0], tile)
+            z = k_splits or dot_splits(blocks, P // kt,
+                                       gram._n_sm(C.device.index))
+            # each split's sums, added into C by the launcher's second pass
+            partials = torch.empty((z, blocks, gram.BLOCK, gram.BLOCK),
+                                   dtype=torch.int32, device=C.device) \
+                if z > 1 else None
+            args += (z, partials.data_ptr() if partials is not None
+                     else None)
+        gram._cuda_call(getattr(_cuda.lib(), entry), *args, device=C.device)
         kernel.launches += 1
         return C
 

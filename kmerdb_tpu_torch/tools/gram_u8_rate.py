@@ -90,13 +90,13 @@ def _host_us(fn, reps: int) -> float:
     return t / reps * 1e6
 
 
-def _ptxas(log: str) -> list:
-    """The -Xptxas -v lines of KERNELS, under their entry names."""
+def _ptxas(log: str, kernels=KERNELS) -> list:
+    """The -Xptxas -v lines of `kernels`, under their entry names."""
     out, keep = [], False
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            keep = any(k in m[1] for k in KERNELS)
+            keep = any(k in m[1] for k in kernels)
             if keep:
                 out.append(m[1])
         elif keep and ("spill" in ln or "registers" in ln):

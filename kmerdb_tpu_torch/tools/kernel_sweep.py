@@ -8,7 +8,7 @@ card, so that the triangle Gram's time splits into its parts:
   bf16        unpack to bf16, weight scale, f32 product
   bf16_ns     the same without the weight scale
   nodot       the unpack alone
-  dotonly     pre-unpacked bf16 operands, the product alone
+  dotonly     pre-unpacked bf16 operands, the product alone (mma.sync)
   dotonly_T   the same with Bi laid out [S, P]
   dotonly_s8  pre-unpacked int8 operands, the product alone (mma.sync)
 
@@ -22,8 +22,11 @@ Each record carries its bound, the larger of the operations (2 per
 multiply-add over the lower tile triangle) over the card's peak for the
 variant's type (int8 1,979 Tops, bf16 989 TFLOP/s; nodot has no product)
 and the bytes (each operand read once, C's triangle read and written) over
-3.35 TB/s, both of an H100 SXM at 700 W; for dotonly_s8 also the time of
-torch._int_mm on the same operands, which computes the full square.
+3.35 TB/s, both of an H100 SXM at 700 W; for dotonly_s8, dotonly and
+dotonly_T also the time of one PyTorch call on the same operands over the
+full square (``library_call``): torch._int_mm, and cuBLAS's bf16 product
+with an f32 result, which on the tool's 0/1 operands gives every K block's
+sum exactly, so its truncation changes nothing.
 
 Usage (on a machine with a CUDA card):
 
@@ -113,6 +116,30 @@ def bound(variant: str, S: int, P: int, tile: int) -> dict:
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
+#: the yardstick of each variant that has one: a PyTorch call on the same
+#: operands over the full S x S square
+LIBRARY_OPS = {
+    "dotonly_s8": "torch._int_mm(Bi.T, Bj), the full S x S square",
+    "dotonly": "torch.mm(Bi.T, Bj, out_dtype=torch.float32) (cuBLAS bf16, "
+               "f32 result), the full S x S square",
+    "dotonly_T": "torch.mm(Bi, Bj, out_dtype=torch.float32) (cuBLAS bf16, "
+                 "f32 result), the full S x S square",
+}
+
+
+def library_call(variant: str, Bi: torch.Tensor, Bj: torch.Tensor):
+    """The call of LIBRARY_OPS[variant] on (Bi, Bj), as a function of no
+    arguments, or None where the variant has none.  A contiguous copy it
+    needs is made here, outside any timing of the call."""
+    if variant == "dotonly_s8":
+        A = Bi.T.contiguous()
+        return lambda: torch._int_mm(A, Bj)
+    if variant in ("dotonly", "dotonly_T"):
+        A = Bi.T if variant == "dotonly" else Bi     # cuBLAS reads Bi.T as is
+        return lambda: torch.mm(A, Bj, out_dtype=torch.float32)
+    return None
+
+
 def _device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
@@ -147,16 +174,19 @@ def run_variant(variant: str, S: int, P: int, kt: int, tile: int,
     rec = {"variant": variant, "S": S, "P": P, "kt": kt, "tile": tile,
            "device": _device_name(dev), "per_call_ms": ms,
            "tops": b["ops"] / ms / 1e9 if ms > 0 else None,
-           "chain_lens": [n1, n2], **b, "library_ms": None}
-    if variant == "dotonly_s8" and dev.type == "cuda":
-        # the yardstick: cuBLAS's int8 product of the same operands (the
-        # full square; rows of Bi.T made contiguous once, outside the time)
-        A = Bi.T.contiguous()
-        torch._int_mm(A, Bj)
-        rec["library_ms"] = device_a2a.time_ms(lambda: torch._int_mm(A, Bj), n2,
-                                     dev) / max(n2, 1)
-        rec["library_op"] = "torch._int_mm(Bi.T, Bj), the full S x S square"
-    del w, Bi, Bj, C
+           "chain_lens": [n1, n2], **b, "library_ms": None,
+           "library_op": LIBRARY_OPS.get(variant)}
+    lib = library_call(variant, Bi, Bj) if dev.type == "cuda" else None
+    if lib is not None:
+        try:
+            lib()
+        except (RuntimeError, TypeError, NotImplementedError) as e:
+            # this torch refuses the call (an older one has no out_dtype):
+            # no yardstick, and no other call in its place
+            rec["library_error"] = f"{type(e).__name__}: {e}"
+        else:
+            rec["library_ms"] = device_a2a.time_ms(lib, n2, dev) / max(n2, 1)
+    del w, Bi, Bj, C, lib
     _emit(rec, out)
     return rec
 

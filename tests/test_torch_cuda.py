@@ -737,10 +737,13 @@ def test_rows_sharded_on_two_cards_matches_host_tier(card, monkeypatch,
 
 SWEEP_CASES = [(512, 128, 512, "random"), (1024, 256, 512, "random"),
                (128, 128, 384, "random"), (128, 128, 640, "ones")]
-#: every variant at every case, and dotonly_s8 on signed operands
+#: every variant at every case, dotonly_s8 on signed operands, and dotonly
+#: and dotonly_T on half-integer ones (each K block's truncation shows)
 SWEEP_PARAMS = [(v, *case) for case in SWEEP_CASES for v in sweep.VARIANTS] \
     + [("dotonly_s8", 512, 128, 512, "signed"),
-       ("dotonly_s8", 1024, 256, 768, "signed")]
+       ("dotonly_s8", 1024, 256, 768, "signed")] \
+    + [(v, kt, tile, 512, "halves") for v in sweep.SPLIT
+       for kt, tile in ((128, 128), (512, 256))]
 
 
 @pytest.mark.parametrize(
@@ -753,7 +756,8 @@ def test_sweep_kernels_match_plain(card, variant, kt, tile, S, operands):
     of 128, 256 and above (each body masks them), C seeded non-zero; kt
     128 at S 384, and every bit and weight bit set at S 640; dotonly_s8
     over the whole of -128..127 (0/1 operands cannot tell .s8 from .u8),
-    -128 * -128 among the products."""
+    -128 * -128 among the products; dotonly and dotonly_T on values in
+    {-1, -0.5, 0, 0.5, 1, 1.5}."""
     P = 4096
     rng = np.random.default_rng(kt + len(variant))
     dt = sweep.operand_dtype(variant)
@@ -763,6 +767,12 @@ def test_sweep_kernels_match_plain(card, variant, kt, tile, S, operands):
                                    else rng.integers(0, 256, size=(P // 8, S),
                                                      dtype=np.uint8)).to(card)
                   for _ in range(2))
+    elif operands == "halves":
+        Bi, Bj = (torch.from_numpy(_halves(rng, (P, S))).to(card)
+                  for _ in range(2))
+        if variant == "dotonly_T":
+            Bi = Bi.T.contiguous()
+        Bi, Bj = Bi.to(dt), Bj.to(dt)
     elif operands == "signed":
         Bi, Bj = (rng.integers(-128, 128, size=(P, S), dtype=np.int8)
                   for _ in range(2))
@@ -785,6 +795,43 @@ def test_sweep_kernels_match_plain(card, variant, kt, tile, S, operands):
     n = kern.launches
     want = sweep.plain(variant, w, Bi, Bj, C.clone(), kt=kt, tile=tile)
     got = kern(w, Bi, Bj, C.clone(), kt=kt, tile=tile)
+    torch.cuda.synchronize()
+    assert kern.launches == n + 1
+    assert torch.equal(got, want) and not torch.equal(got, C)
+
+
+def _halves(rng, shape):
+    return rng.choice(np.array([-1.0, -0.5, 0.0, 0.5, 1.0, 1.5], np.float32),
+                      size=shape)
+
+
+#: (P, kt, k_splits): one K block (no split), 5 K blocks at the planner's
+#: split and at 2 and 3 runs (uneven: 3 + 2, 2 + 2 + 1), 7 of 128 at 4
+SPLIT_CASES = [(512, 512, None), (5 * 512, 512, None), (5 * 512, 512, 2),
+               (5 * 512, 512, 3), (7 * 128, 128, 4)]
+
+
+@pytest.mark.parametrize("variant", ["dotonly", "dotonly_T"])
+@pytest.mark.parametrize("P,kt,k_splits", SPLIT_CASES,
+                         ids=[f"{p}-{kt}-{z}" for p, kt, z in SPLIT_CASES])
+def test_sweep_dot_split_boundaries(card, variant, P, kt, k_splits):
+    """dotonly and dotonly_T on the bf16 tensor cores at the edges of the
+    split-K grid: each split a run of whole K blocks, on half-integer
+    operands, so that a split inside a K block would move a truncation;
+    S 384 at tile 128 (6 output blocks), C seeded non-zero."""
+    S = 384
+    rng = np.random.default_rng(P + kt)
+    Bi, Bj = (torch.from_numpy(_halves(rng, (P, S))).to(card)
+              for _ in range(2))
+    if variant == "dotonly_T":
+        Bi = Bi.T.contiguous()
+    Bi, Bj = Bi.to(torch.bfloat16), Bj.to(torch.bfloat16)
+    w = torch.zeros(P, dtype=torch.int32, device=card)
+    C = torch.from_numpy(_u32(rng, (S, S)).view(np.int32)).to(card)
+    kern = sweep.KERNELS[variant]
+    n = kern.launches
+    want = sweep.plain(variant, w, Bi, Bj, C.clone(), kt=kt, tile=128)
+    got = kern(w, Bi, Bj, C.clone(), kt=kt, tile=128, k_splits=k_splits)
     torch.cuda.synchronize()
     assert kern.launches == n + 1
     assert torch.equal(got, want) and not torch.equal(got, C)

@@ -4,11 +4,13 @@ Each Gram variant's plain version (ops/sweep.py, what the wrapper runs for
 CPU tensors) is held to the variant that kmerdb_tpu's
 ``tools/kernel_sweep.build`` makes, run in the Pallas interpreter: the same
 operands, made with numpy from a seed, at two geometries, with weights of
-128 and 256 and above, Bi != Bj and C seeded non-zero.  Tolerance: exact
-equality of the uint32 matrices.  Then the tool's own functions on a CPU
-device: ops/device_a2a.kernel_bench's chained C and its truncation under
-KMERDB_A2A_RESIDENT_MB, the records of run_variant and sweep_on_db, and
-that sweep_on_db gives the geometry knobs back.
+128 and 256 and above, Bi != Bj and C seeded non-zero; dotonly and
+dotonly_T also on half-integer operands, whose per-K-block truncation
+shows.  Tolerance: exact equality of the uint32 matrices.  Then the tool's
+own functions on a CPU device: ops/device_a2a.kernel_bench's chained C and
+its truncation under KMERDB_A2A_RESIDENT_MB, the records of run_variant
+and sweep_on_db, that sweep_on_db gives the geometry knobs back, and the
+split planner of the dotonly grid.
 """
 
 import functools
@@ -46,9 +48,22 @@ def jax_sweep():
     return mod
 
 
-def _operands(variant, rng, signed=False):
+#: the half-integer operand values of dotonly and dotonly_T
+HALVES = np.array([-1.0, -0.5, 0.0, 0.5, 1.0, 1.5], np.float32)
+
+
+def _operands(variant, rng, signed=False, halves=False):
     """(jax operands, port operands) of one variant: Bi != Bj; with
-    `signed`, dotonly_s8's int8 over the whole of -128..127."""
+    `signed`, dotonly_s8's int8 over the whole of -128..127; with `halves`,
+    bf16 values in HALVES (exact in bf16)."""
+    if halves:
+        Ri, Rj = (rng.choice(HALVES, size=(P, S)) for _ in range(2))
+        if variant == "dotonly_T":
+            Ri = np.ascontiguousarray(Ri.T)
+        return ((Ri.astype(ml_dtypes.bfloat16),
+                 Rj.astype(ml_dtypes.bfloat16)),
+                tuple(torch.from_numpy(R).to(torch.bfloat16)
+                      for R in (Ri, Rj)))
     if signed:
         Ri, Rj = (rng.integers(-128, 128, size=(P, S), dtype=np.int8)
                   for _ in range(2))
@@ -68,23 +83,26 @@ def _operands(variant, rng, signed=False):
             tuple(torch.from_numpy(R).to(torch.bfloat16) for R in (Ri, Rj)))
 
 
-#: every variant at two geometries, and dotonly_s8 on signed operands
-VARIANT_CASES = [(v, kt, tile, False) for kt, tile in ((512, 128), (1024, 256))
-                 for v in sweep.VARIANTS] + [("dotonly_s8", 512, 128, True)]
+#: every variant at two geometries, dotonly_s8 on signed operands, and
+#: dotonly and dotonly_T on half-integer ones at K blocks of 128 and 512
+VARIANT_CASES = [(v, kt, tile, "") for kt, tile in ((512, 128), (1024, 256))
+                 for v in sweep.VARIANTS] + [("dotonly_s8", 512, 128, "signed")] \
+    + [(v, kt, 128, "halves") for v in sweep.SPLIT for kt in (128, 512)]
 
 
 @pytest.mark.parametrize(
-    "variant,kt,tile,signed", VARIANT_CASES,
-    ids=[f"{v}-{kt}-{tile}" + ("-signed" if sg else "")
-         for v, kt, tile, sg in VARIANT_CASES])
+    "variant,kt,tile,operands", VARIANT_CASES,
+    ids=[f"{v}-{kt}-{tile}" + (f"-{op}" if op else "")
+         for v, kt, tile, op in VARIANT_CASES])
 def test_variant_matches_jax_interpreted(jax_sweep, variant, kt, tile,
-                                         signed):
+                                         operands):
     jnp = jax_sweep.jnp
     rng = np.random.default_rng(kt + sweep.VARIANTS.index(variant))
     w = rng.integers(0, 1 << 32, size=(P, 1), dtype=np.uint64) \
         .astype(np.uint32)
     w[:6, 0] = (127, 128, 255, 256, 257, 0xFFFFFFFF)  # each body masks w
-    (ji, jj), (ti, tj) = _operands(variant, rng, signed)
+    (ji, jj), (ti, tj) = _operands(variant, rng, signed=operands == "signed",
+                                   halves=operands == "halves")
     C0 = rng.integers(0, 1 << 32, size=(S, S), dtype=np.uint64) \
         .astype(np.uint32)
 
@@ -105,6 +123,14 @@ def test_variant_matches_jax_interpreted(jax_sweep, variant, kt, tile,
     upper = band[:, None] < band[None, :]
     np.testing.assert_array_equal(want[upper], C0[upper])
     assert (want[~upper] != C0[~upper]).any()
+    if operands == "halves":
+        # one truncation of the whole sum gives other numbers: the K
+        # blocks' truncation is part of the function
+        A = ji.astype(np.float64)
+        A = A if variant == "dotonly_T" else A.T
+        whole = np.trunc(A @ jj.astype(np.float64)).astype(np.int64)
+        once = (C0.astype(np.int64) + whole).astype(np.uint32)
+        assert (once[~upper] != want[~upper]).any()
 
 
 def test_tool_build_is_the_port_kernel():
@@ -135,16 +161,64 @@ def test_operands_the_kernels_do_not_take_are_refused(variant, kw, match):
         sweep.KERNELS["dotonly"](w, Bi, Bj, C, kt=512, tile=128)
 
 
-@pytest.mark.parametrize("variant", ["int8", "nodot", "dotonly_s8"])
+@pytest.mark.parametrize("variant", ["int8", "nodot", "dotonly_s8",
+                                     "dotonly", "dotonly_T"])
 def test_run_variant_record(variant):
     rec = kernel_sweep.run_variant(variant, S, P, 512, 128, n1=1, n2=2,
                                    device="cpu", out=None)
     nt = S // 128
     cells = nt * (nt + 1) // 2 * 128 * 128
+    assert {"variant", "S", "P", "kt", "tile", "device", "per_call_ms",
+            "tops", "chain_lens", "ops", "bytes", "bound_ms", "bound_by",
+            "library_ms", "library_op"} <= set(rec)
     assert rec["chain_lens"] == [1, 2] and rec["device"] == "cpu"
     assert rec["ops"] == (0.0 if variant == "nodot" else 2.0 * cells * P)
     assert rec["bound_by"] in ("bytes", "operations") and rec["bound_ms"] > 0
     assert rec["library_ms"] is None            # timed on a card only
+    assert "library_error" not in rec
+    if variant.startswith("dotonly"):
+        op = rec["library_op"]
+        assert op.startswith("torch._int_mm" if variant == "dotonly_s8"
+                             else "torch.mm") and "full S x S" in op
+    else:
+        assert rec["library_op"] is None
+
+
+@pytest.mark.parametrize("blocks,k_blocks,n_sm,want", [
+    (136, 256, 132, 16),     # the tool's defaults: S 2,048, P 2^17, kt 512
+    (10, 16, 132, 8),        # phase 23a's S 512, P 8,192: one wave of 80
+    (1, 1, 132, 1),          # one K block: no split
+    (10, 5, 132, 5),         # an odd number of K blocks, one each
+    (528, 256, 132, 1),      # output blocks alone fill the card
+])
+def test_dot_splits_fill_the_card(blocks, k_blocks, n_sm, want):
+    z = sweep.dot_splits(blocks, k_blocks, n_sm)
+    assert z == want and 1 <= z <= k_blocks
+    waves = -(-blocks * z // n_sm) * -(-k_blocks // z)
+    assert waves <= max(sweep.SPLIT_SLACK * blocks * k_blocks / n_sm,
+                        min(-(-blocks * y // n_sm) * -(-k_blocks // y)
+                            for y in range(1, k_blocks + 1)))
+
+
+def test_k_splits_is_checked_and_leaves_the_sums_alone():
+    rng = np.random.default_rng(9)
+    w, Bi, Bj = kernel_sweep.operands("dotonly", S, P, "cpu")
+    Bi = torch.from_numpy(rng.choice(HALVES, size=(P, S))).to(torch.bfloat16)
+    C0 = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(S, S),
+                                       dtype=np.int64).astype(np.int32))
+    want = sweep.plain("dotonly", w, Bi, Bj, C0.clone(), kt=512, tile=128)
+    for z in (1, 3, P // 512):
+        got = sweep.KERNELS["dotonly"](w, Bi, Bj, C0.clone(), kt=512,
+                                       tile=128, k_splits=z)
+        assert torch.equal(got, want)
+    for bad in (0, P // 512 + 1, 2.0):
+        with pytest.raises(ValueError, match="k_splits"):
+            sweep.KERNELS["dotonly"](w, Bi, Bj, C0.clone(), kt=512,
+                                     tile=128, k_splits=bad)
+    w8, B8, _ = kernel_sweep.operands("dotonly_s8", S, P, "cpu")
+    with pytest.raises(ValueError, match="k_splits"):
+        sweep.KERNELS["dotonly_s8"](w8, B8, B8, C0.clone(), kt=512,
+                                    tile=128, k_splits=1)
 
 
 def _random_db(S_db=300, n_pat=3000, max_w=1 << 12, seed=2):
