@@ -17,7 +17,9 @@ one per case), each with its seconds:
    query contraction's matmul_acc_kernel, the records matmul_u32_acc and
    matmul_u32, whose shared memory is dynamic: the library's
    kmerdb_gram_u8_smem_bytes); on the bf16 ones the sweep's dotonly and
-   dotonly_T (gram_bf16.cuh, dynamic: kmerdb_gram_bf16_smem_bytes);
+   dotonly_T (gram_bf16.cuh, dynamic: kmerdb_gram_bf16_smem_bytes) and
+   bf16 and bf16_ns (its packed block, dynamic:
+   kmerdb_gram_bf16_pk_smem_bytes);
 3. the 4,096-sample x 30 kbp scale corpus (the ICTV-scale stand-in of
    bench.py) and its database, built through the port's CLI entry point;
 4. the matrix route's kernels against their plain PyTorch versions on the
@@ -152,8 +154,14 @@ one per case), each with its seconds:
     (1024, 256), Bi != Bj, weights of 128 and 256 and above, C seeded
     non-zero, and ``dotonly``, ``dotonly_T`` (bf16 tensor cores, split K)
     also on half-integer operands in {-1, -0.5, 0, 0.5, 1, 1.5}, where each
-    K block's truncation shows; (b) the tool's ``run_variant`` of each at
-    its defaults (S 2,048, P 2^20, 2^17 for ``dotonly*``, kt 512, tile 128;
+    K block's truncation shows; ``bf16`` and ``bf16_ns`` (bf16 tensor cores
+    on packed operands, split K) also at k_splits 1 and 3, and on the flush
+    case: every byte 0xFF, weights drawn from 129..255, kt 65,536, P
+    131,072, S 256, C seeded at 2^31 and above, at k_splits 1 and the
+    planner's, where each K block's sum stays below 2^24 and each lower
+    cell of ``bf16`` gains the weights' sum, above 2^24; (b) the tool's
+    ``run_variant`` of each at its defaults (S 2,048, P 2^20, 2^17 for
+    ``dotonly*``, kt 512, tile 128;
     a chain of 1 + 5 calls, the launch counters reset before it and read
     after), then one call against the plain version, exactly, with the
     plain version's time, and the tool's yardstick on the same operands
@@ -161,7 +169,12 @@ one per case), each with its seconds:
     for ``dotonly_s8``, and for ``dotonly`` and ``dotonly_T``
     ``torch.mm(..., out_dtype=torch.float32)`` (cuBLAS bf16), whose result,
     truncated, on the lower tiles and added to C, must equal the kernel's
-    (``library_equal``);
+    (``library_equal``); each split variant's k_splits as its wrapper
+    launched it (in the kernels' line too), and for ``bf16`` and
+    ``bf16_ns`` a line with their share of the bound and two yardsticks:
+    the ``int8`` variant's time (the same function at one 7-bit limb on
+    the int8 cores) and ``dotonly``'s scaled to P 2^20 (the same product
+    on unpacked slabs; an extrapolation, printed only);
     (c) ``sweep_on_db`` on the 4,096-sample database at kts 256, 512, 1024 x
     tiles 128, 256 (``kernel_bench``; its ``gram_pk_tri`` launches those of
     its chains, the knobs restored); (d) the ``int8`` variant equals
@@ -1326,6 +1339,51 @@ def _sweep_operands(torch, sweep, variant, S, P, rng, dev,
     return torch.from_numpy(w.view(np.int32)).to(dev), Bi, Bj
 
 
+#: phase 23a's flush case: two K blocks whose bf16 sums (at most 255 * kt
+#: each) stay below 2^24, while a cell gains more than 2^24 in all
+FLUSH_KT, FLUSH_P, FLUSH_S = 65536, 131072, 256
+
+
+def _sweep_flush(torch, sweep, rng, dev) -> dict:
+    """The flush case of sweep.PACKED_BF16: every byte 0xFF, weights drawn
+    from 129..255, C seeded at 2^31 and above; each kernel == its plain
+    version at k_splits 1 and the planner's, and bf16's lower cells gain
+    exactly the weights' sum (> 2^24, and not a multiple of a large power
+    of two: f32 sums carried across K blocks would round it; bf16_ns's
+    gain, 2 * kt, stays below 2^24).  Returns each variant's
+    max_abs_err."""
+    Bp = torch.full((FLUSH_P // 8, FLUSH_S), 255, dtype=torch.uint8,
+                    device=dev)
+    w_np = rng.integers(129, 256, size=FLUSH_P, dtype=np.int32)
+    w = torch.from_numpy(w_np).to(dev)
+    C0 = torch.from_numpy(((np.arange(FLUSH_S * FLUSH_S, dtype=np.uint64)
+                            * 2654435761) % (1 << 31) + (1 << 31))
+                          .astype(np.uint32).reshape(FLUSH_S, FLUSH_S)
+                          .view(np.int32)).to(dev)
+    band = torch.arange(FLUSH_S, device=dev) // 128
+    lower = band[:, None] >= band[None, :]
+    out = {}
+    for v in sweep.PACKED_BF16:
+        kw = dict(kt=FLUSH_KT, tile=128)
+        Cp = sweep.plain(v, w, Bp, Bp, C0.clone(), **kw)
+        gain = int(w_np.sum()) if v == "bf16" else 2 * FLUSH_KT
+        moved = (_u32(torch, Cp) - _u32(torch, C0)) & 0xFFFFFFFF
+        _check(bool((moved[lower] == gain).all() and (moved[~lower] == 0)
+                    .all()), f"sweep {v}'s plain version misses the flush "
+                             f"case's gain {gain}")
+        errs = []
+        for z in (1, None):
+            Ck = sweep.KERNELS[v](w, Bp, Bp, C0.clone(), k_splits=z, **kw)
+            torch.cuda.synchronize()
+            errs.append(_err(torch, Ck, Cp))
+            _check(torch.equal(Ck, Cp), f"sweep {v} differs from its plain "
+                                        f"version on the flush case at "
+                                        f"k_splits {z} (max_abs_err="
+                                        f"{errs[-1]})")
+        out[v] = max(errs)
+    return out
+
+
 def _random_c(torch, rng, S, dev):
     return torch.from_numpy(rng.integers(0, 1 << 32, size=(S, S),
                                          dtype=np.uint64).astype(np.uint32)
@@ -1363,7 +1421,7 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
                    f"sweep {v} differs from its plain version (kt {kt}, "
                    f"tile {tile}, max_abs_err={err})")
             res[v]["errs"].append(err)
-        for v in sweep.SPLIT:
+        for v in sweep.UNPACKED_BF16:
             w, Bi, Bj = _sweep_operands(torch, sweep, v, 512, 8192, rng, dev,
                                         halves=True)
             C0 = _random_c(torch, rng, 512, dev)
@@ -1376,10 +1434,31 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
                    f"integer operands (kt {kt}, tile {tile}, "
                    f"max_abs_err={err})")
             res[v]["errs"].append(err)
+    for v in sweep.PACKED_BF16:
+        # k_splits 1 and 3 beside the planner's choice above
+        w, Bi, Bj = _sweep_operands(torch, sweep, v, 512, 8192, rng, dev)
+        C0 = _random_c(torch, rng, 512, dev)
+        Cp = sweep.plain(v, w, Bi, Bj, C0.clone(), kt=512, tile=128)
+        for z in (1, 3):
+            Ck = sweep.KERNELS[v](w, Bi, Bj, C0.clone(), kt=512, tile=128,
+                                  k_splits=z)
+            torch.cuda.synchronize()
+            err = _err(torch, Ck, Cp)
+            _check(torch.equal(Ck, Cp), f"sweep {v} differs from its plain "
+                                        f"version at k_splits {z} "
+                                        f"(max_abs_err={err})")
+            res[v]["errs"].append(err)
+    flush = _sweep_flush(torch, sweep, rng, dev)
+    for v, err in flush.items():
+        res[v]["errs"].append(err)
     say(f"[23a sweep] {time.perf_counter() - t:.2f} s; all "
         f"{len(sweep.VARIANTS)} variants == plain at S 512, P 8192, (kt, "
         f"tile) (512, 128) and (1024, 256), Bi != Bj, C seeded non-zero; "
-        f"{' and '.join(sweep.SPLIT)} also on half-integer operands")
+        f"{' and '.join(sweep.UNPACKED_BF16)} also on half-integer operands;"
+        f" {' and '.join(sweep.PACKED_BF16)} also at k_splits 1 and 3, and "
+        f"on the flush case (every byte 0xFF, weights in 129..255, kt "
+        f"{FLUSH_KT}, P {FLUSH_P}, S {FLUSH_S}: each lower cell gains the "
+        f"weights' sum, > 2^24, for bf16) at k_splits 1 and the planner's")
 
     for v in sweep.VARIANTS:
         t = time.perf_counter()
@@ -1393,6 +1472,9 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
         _check(launches == 6, f"sweep {v}: {launches} launches, expected 6")
         C0 = _random_c(torch, rng, SWEEP_S, dev)
         Ck = kern(*ops, C0.clone(), kt=SWEEP_KT, tile=SWEEP_TILE)
+        if v in sweep.SPLIT:
+            # the split count of that launch, the planner's
+            res[v]["k_splits"] = kern.k_splits
         Cp = C0.clone()
         plain_ms = _cuda_ms(torch, lambda: sweep.plain(
             v, *ops, Cp.copy_(C0), kt=SWEEP_KT, tile=SWEEP_TILE), 1)
@@ -1415,6 +1497,8 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
             del L, Cl
         del ops, C0, Ck, Cp
         torch.cuda.empty_cache()
+        if v in sweep.SPLIT:
+            lib_note += f", k_splits {res[v]['k_splits']}"
         say(f"[23b sweep {v}] {time.perf_counter() - t:.2f} s; S {SWEEP_S}, "
             f"P {P}, kt {SWEEP_KT}, tile {SWEEP_TILE}: "
             f"{rec['per_call_ms']:.4f} ms a call ({rec['tops']:.2f} Tops), "
@@ -1424,6 +1508,21 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
                if rec["library_ms"] is not None
                else f"none ({rec.get('library_error', 'no call')})")
             + f"{lib_note}, {launches} launches, == plain")
+
+    # the packed bf16 block against its yardsticks: the int8 variant (the
+    # same function at one 7-bit limb on the int8 cores) and dotonly's time
+    # per 2^17 patterns scaled to P (the same product on unpacked slabs;
+    # an extrapolation, said here and kept out of the kernels' line)
+    int8_ms = res["int8"]["per_call_ms"]
+    dot_ms = res["dotonly"]["per_call_ms"] * SWEEP_P / SWEEP_P_UNPACKED
+    for v in sweep.PACKED_BF16:
+        r = res[v]
+        say(f"[23b sweep {v}] {r['per_call_ms']:.4f} ms at k_splits "
+            f"{r['k_splits']}, {100 * r['bound_ms'] / r['per_call_ms']:.1f}% "
+            f"of the {r['bound_ms']:.4f} ms bound; int8 {int8_ms:.4f} ms "
+            f"(x{r['per_call_ms'] / int8_ms:.2f}), dotonly x "
+            f"{SWEEP_P // SWEEP_P_UNPACKED} {dot_ms:.4f} ms "
+            f"(x{r['per_call_ms'] / dot_ms:.2f}: the packed staging's cost)")
 
     t = time.perf_counter()
     _reset_launches(gram)
@@ -1485,19 +1584,23 @@ MMA_KERNELS = {"gram_pk_tri": "gram_pk_tri_kernel",
                "matmul_u32_acc": "matmul_acc_kernel",
                "matmul_u32": "matmul_acc_kernel",
                "sweep_dotonly": "sweep_dot_bf16_kernelILb0E",
-               "sweep_dotonly_T": "sweep_dot_bf16_kernelILb1E"}
+               "sweep_dotonly_T": "sweep_dot_bf16_kernelILb1E",
+               "sweep_bf16": "sweep_pk_bf16_kernelILb1E",
+               "sweep_bf16_ns": "sweep_pk_bf16_kernelILb0E"}
 #: those of gram_u8.cuh's block, whose shared memory is dynamic
 U8_KERNELS = ("gram_u32_tri", "gram_u32", "sweep_dotonly_s8",
               "matmul_u32_acc", "matmul_u32")
 #: those of gram_bf16.cuh's block, dynamic too
 BF16_KERNELS = ("sweep_dotonly", "sweep_dotonly_T")
+#: those of its packed block, dynamic too
+BF16_PK_KERNELS = ("sweep_bf16", "sweep_bf16_ns")
 
 
-def _mma_resources(log: str, u8_smem: int, bf16_smem: int) -> dict:
+def _mma_resources(log: str, dynamic: dict) -> dict:
     """MMA_KERNELS' registers, spill bytes (stores + loads) and shared
     memory by record name, from nvcc's -Xptxas -v output (static shared
-    memory; U8_KERNELS add their `u8_smem` dynamic bytes, BF16_KERNELS
-    their `bf16_smem`); fails if one is missing."""
+    memory, plus `dynamic[record]` bytes where a record has some); fails
+    if one is missing."""
     out, recs = {}, []
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -1514,8 +1617,7 @@ def _mma_resources(log: str, u8_smem: int, bf16_smem: int) -> dict:
                 smem = re.search(r"(\d+) bytes smem", ln)
                 out[rec].update(registers=int(regs[1]),
                                 smem_bytes=(int(smem[1]) if smem else 0)
-                                + (u8_smem if rec in U8_KERNELS else 0)
-                                + (bf16_smem if rec in BF16_KERNELS else 0))
+                                + dynamic.get(rec, 0))
     _check(all(len(out.get(r, {})) == 3 for r in MMA_KERNELS),
            f"ptxas gave no resources for some of {MMA_KERNELS}: {out}")
     return out
@@ -1602,9 +1704,12 @@ def run(workdir: str) -> list:
         f"{os.path.relpath(_cuda.library_path())}; ptxas: " + "; ".join(
             ln.split("info    : ")[1] for ln in _cuda.build_log().splitlines()
             if "registers" in ln))
-    mma_res = _mma_resources(_cuda.build_log(),
-                             _cuda.lib().kmerdb_gram_u8_smem_bytes(),
-                             _cuda.lib().kmerdb_gram_bf16_smem_bytes())
+    lib = _cuda.lib()
+    mma_res = _mma_resources(_cuda.build_log(), {
+        **dict.fromkeys(U8_KERNELS, lib.kmerdb_gram_u8_smem_bytes()),
+        **dict.fromkeys(BF16_KERNELS, lib.kmerdb_gram_bf16_smem_bytes()),
+        **dict.fromkeys(BF16_PK_KERNELS,
+                        lib.kmerdb_gram_bf16_pk_smem_bytes())})
     say("[2 build] tensor-core blocks (int8: gram_pk.cuh, gram_u8.cuh; "
         "bf16: gram_bf16.cuh): "
         + "; ".join(f"{rec} {_fmt(r)}" for rec, r in mma_res.items()))
@@ -1920,7 +2025,8 @@ def run(workdir: str) -> list:
           "launches": r["launches"], "max_abs_err": max(r["errs"]),
           "ms": r["per_call_ms"], "plain_ms": r["plain_ms"],
           "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-          "library_ms": r["library_ms"]}
+          "library_ms": r["library_ms"],
+          **({"k_splits": r["k_splits"]} if "k_splits" in r else {})}
          for v, r in sw["variants"].items()]
     for k in kernels:
         if k["name"] in mma_res:

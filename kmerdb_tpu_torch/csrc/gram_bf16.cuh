@@ -1,9 +1,11 @@
-// One 128 x 128 output block of an unpacked bf16 product on Hopper's bf16
-// tensor cores, the kernel sweep's dotonly and dotonly_T (gram_sweep.cu):
+// One 128 x 128 output block of a bf16 product on Hopper's bf16 tensor
+// cores, the kernel sweep's dotonly and dotonly_T (block, unpacked
+// operands) and bf16 and bf16_ns (packed_block, bit-packed ones; the end of
+// the file), all in gram_sweep.cu:
 //   out[r, c] (+)= sum over the K blocks of kt patterns of
 //                  (uint32) trunc(f32 sum_{p in the block} a(r, p) * b(p, c))
-// trunc toward zero, as tools/kernel_sweep.py body_dotonly casts each K
-// grid step's f32 product to int32 and adds it into C as uint32.
+// trunc toward zero, as tools/kernel_sweep.py body_dotonly and body_bf16
+// cast each K grid step's f32 product to int32 and add it into C as uint32.
 //
 // The column operand keeps the JAX package's layout:
 //   b     bf16 [P, ld] pattern-major, the block's first sample column,
@@ -89,12 +91,12 @@ struct Stage {
 // 196,608 bytes of the SM's 227 KB
 constexpr int kSmemBytes = kStages * static_cast<int>(sizeof(Stage));
 
-// Lets `kernel`, a launcher of block(), take kSmemBytes of dynamic shared
-// memory.
+// Lets `kernel`, a launcher of block() (or of packed_block(), with
+// kPkSmemBytes), take `bytes` of dynamic shared memory.
 template <class Kernel>
-cudaError_t allow_smem(Kernel kernel) {
+cudaError_t allow_smem(Kernel kernel, int bytes = kSmemBytes) {
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
@@ -166,23 +168,29 @@ struct PatternFrag {
   }
 };
 
-// dotonly's row operand: pattern-major bf16 [P, ld] like b, the block's
-// first row sample at `a`.  Matrices (rows lo, K lo), (rows hi, K lo),
-// (rows lo, K hi), (rows hi, K hi): the A registers in mma's order.
-struct PatternRows {
-  PatternSlab copy;
+// The A fragments of a pattern-major row slab.  Matrices (rows lo, K lo),
+// (rows hi, K lo), (rows lo, K hi), (rows hi, K hi): the A registers in
+// mma's order.
+struct PatternRowFrag {
   PatternFrag frag;
   int q0;  // the warp's first 8-sample chunk
 
-  __device__ __forceinline__ PatternRows(const uint16_t* a, int64_t ld)
-      : copy(a, ld), frag(false), q0(8 * (threadIdx.x / 128)) {}
-
-  __device__ __forceinline__ void load(Stage& st, int64_t p0) const { copy(st.a, p0); }
+  __device__ __forceinline__ PatternRowFrag() : frag(false), q0(8 * (threadIdx.x / 128)) {}
 
   // the A registers of the warp's m16 tile mt at K step ks
   __device__ __forceinline__ void read(uint32_t slab, int ks, int mt, uint32_t (&af)[4]) const {
     ldsm_x4_trans(frag.at(slab, ks, q0 + 2 * mt), af);
   }
+};
+
+// dotonly's row operand: pattern-major bf16 [P, ld] like b, the block's
+// first row sample at `a`.
+struct PatternRows : PatternRowFrag {
+  PatternSlab copy;
+
+  __device__ __forceinline__ PatternRows(const uint16_t* a, int64_t ld) : copy(a, ld) {}
+
+  __device__ __forceinline__ void load(Stage& st, int64_t p0) const { copy(st.a, p0); }
 };
 
 // dotonly_T's row operand: sample-major bf16 [rows, ld], K contiguous, the
@@ -222,6 +230,103 @@ struct SampleRows {
   }
 };
 
+// The accumulators of a thread: the K block's f32 sums and the run's
+// uint32 ones, 64 each.
+struct Sums {
+  float part[4][4][4];
+  uint32_t acc[4][4][4];
+
+  __device__ __forceinline__ Sums() {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          part[mt][nt][e] = 0.0f;
+          acc[mt][nt][e] = 0u;
+        }
+  }
+
+  // the K block's end: its f32 sums join the uint32 ones, truncated
+  __device__ __forceinline__ void flush() {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[mt][nt][e] += static_cast<uint32_t>(__float2int_rz(part[mt][nt][e]));
+          part[mt][nt][e] = 0.0f;
+        }
+  }
+
+  // out (+)= the uint32 sums: d[2h], d[2h + 1] of tile (mt, nt) are row
+  // 16 mt + g + 8h, columns 8 nt + 2t and 8 nt + 2t + 1 of the warp's 64 x 32
+  __device__ __forceinline__ void write(uint32_t* __restrict__ out, int64_t ld_out,
+                                        bool store) const {
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint2* dst = reinterpret_cast<uint2*>(
+              out + (64 * (warp / 4) + 16 * mt + g + 8 * h) * ld_out + 32 * (warp % 4) + 8 * nt +
+              2 * t);
+          uint2 v = make_uint2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+          if (!store) {
+            const uint2 o = *dst;
+            v = make_uint2(v.x + o.x, v.y + o.y);
+          }
+          *dst = v;
+        }
+  }
+};
+
+// The product of one stage of kStage patterns, row slab at sa and column
+// slab at sb (shared addresses): per K step of 16, 2 ldmatrix for the
+// warp's columns, then for each of its 4 row tiles one ldmatrix and 4 mma.
+// `step(ks)` runs at the head of K step ks (packed_block's expansion).
+template <class Rows, class Step>
+__device__ __forceinline__ void stage_mma(uint32_t sa, uint32_t sb, const Rows& rows, Sums& sums,
+                                          const Step& step) {
+  const int q_b = 4 * (threadIdx.x / 32 % 4);  // the warp's first 8-sample column chunk
+  // B: matrices (K lo, cols lo), (K hi, cols lo), (K lo, cols hi), (K hi,
+  // cols hi): b[0], b[1] of n8 tile 2y, then of 2y + 1
+  const PatternFrag bfrag(true);
+#pragma unroll
+  for (int ks = 0; ks < kStage / 16; ++ks) {
+    step(ks);
+    uint32_t bf[4][2];
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      uint32_t r[4];
+      ldsm_x4_trans(bfrag.at(sb, ks, q_b + 2 * y), r);
+      bf[2 * y][0] = r[0];
+      bf[2 * y][1] = r[1];
+      bf[2 * y + 1][0] = r[2];
+      bf[2 * y + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      uint32_t af[4];
+      rows.read(sa, ks, mt, af);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_bf16::m16n8k16(sums.part[mt][nt], af, bf[nt]);
+    }
+  }
+}
+
+// block()'s step: nothing between its K steps.
+struct NoStep {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
 // Called by all kThreads threads of the block, `smem` the kSmemBytes of
 // dynamic shared memory (see the top of the file).
 template <class Rows>
@@ -230,12 +335,7 @@ __device__ __forceinline__ void block(uint8_t* smem, const Rows& rows,
                                       int n_st, int st_kt, uint32_t* __restrict__ out,
                                       int64_t ld_out, bool store) {
   Stage* ring = reinterpret_cast<Stage*>(smem);
-  const int warp = threadIdx.x / 32;
-  const int q_b = 4 * (warp % 4);  // the warp's first 8-sample column chunk
   const PatternSlab cols(b, ld);
-  // B: matrices (K lo, cols lo), (K hi, cols lo), (K lo, cols hi), (K hi,
-  // cols hi): b[0], b[1] of n8 tile 2y, then of 2y + 1
-  const PatternFrag bfrag(true);
 
   auto load = [&](Stage& st, int i) {
     const int64_t p = p0 + static_cast<int64_t>(i) * kStage;
@@ -248,18 +348,7 @@ __device__ __forceinline__ void block(uint8_t* smem, const Rows& rows,
     gram_u8::cp_commit();
   }
 
-  float part[4][4][4];
-  uint32_t acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        part[mt][nt][e] = 0.0f;
-        acc[mt][nt][e] = 0u;
-      }
-
+  Sums sums;
   for (int i = 0; i < n_st; ++i) {
     gram_u8::cp_wait<kStages - 2>();  // this thread's copies of stage i have landed
     __syncthreads();                  // everyone's have; stage i - 1's readers are done
@@ -268,64 +357,181 @@ __device__ __forceinline__ void block(uint8_t* smem, const Rows& rows,
     gram_u8::cp_commit();
 
     const Stage& st = ring[i % kStages];
-    const uint32_t sa = gram_u8::smem_addr(st.a);
-    const uint32_t sb = gram_u8::smem_addr(st.b);
-#pragma unroll
-    for (int ks = 0; ks < kStage / 16; ++ks) {
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int y = 0; y < 2; ++y) {
-        uint32_t r[4];
-        ldsm_x4_trans(bfrag.at(sb, ks, q_b + 2 * y), r);
-        bf[2 * y][0] = r[0];
-        bf[2 * y][1] = r[1];
-        bf[2 * y + 1][0] = r[2];
-        bf[2 * y + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        uint32_t af[4];
-        rows.read(sa, ks, mt, af);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16::m16n8k16(part[mt][nt], af, bf[nt]);
-      }
-    }
+    stage_mma(gram_u8::smem_addr(st.a), gram_u8::smem_addr(st.b), rows, sums, NoStep{});
+    if ((i + 1) % st_kt == 0) sums.flush();
+  }
+  sums.write(out, ld_out, store);
+}
 
-    if ((i + 1) % st_kt == 0) {
-      // the K block's end: its f32 sums join the uint32 ones, truncated
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[mt][nt][e] += static_cast<uint32_t>(__float2int_rz(part[mt][nt][e]));
-            part[mt][nt][e] = 0.0f;
-          }
-    }
+// ---------------------------------------------------------------------------
+// Packed operands: the sweep's bf16 (kWeighted) and bf16_ns.
+//   out[r, c] (+)= sum over the K blocks of
+//                  trunc(f32 sum_p bit_a(p, r) * wv(p) * bit_b(p, c))
+// with wv(p) = w[p] & 0xFF for bf16 and 1 for bf16_ns; a and b are
+// uint8[P/8, ld] (bit b of byte row r is pattern 8r + b; a the block's
+// first row sample, b its first column sample, both 16-byte aligned, ld a
+// multiple of 16), w uint32[P] in pk_weight_order for kt = 128 st_kt
+// (pattern 8r + b of K block k at k kt + b kt/8 + r % (kt/8)), 16-byte
+// aligned.  Every partial sum is an integer at most 255 kt, below 2^24
+// for kt below 65,793: exact in f32 in any order.
+//
+// Stage.  A stage is 16 byte rows (128 patterns) of each operand, 2 KB,
+// and for bf16 its 128 weights, 512 bytes (16 consecutive words for each
+// bit b at k kt + b kt/8 + the stage's first byte row in the K block).
+// Threads copy them with one 16-byte cp.async each (and 32 threads one
+// more for the weights) into a ring of kPkRing packed stages, kPkRing - 1
+// stages ahead.  Each stage is expanded once a block into the bf16 slabs
+// that block() reads (PatternSlab's layout: stage row k = 16 b + r holds
+// bit b of byte row r, 256 bytes, chunk c at c ^ (k & 7)), in two
+// expanded stages: stage i + 1's expansion runs while stage i's mma do,
+// with one barrier a stage.  Thread (r, c) = (tid / 16, tid % 16) expands
+// 8 samples of byte row r of both operands, bit plane b at K step b: per
+// word of two samples a prmt spreads their bits to bits 0 and 16, and one
+// multiply by the 16-bit bf16 pattern of the weight (bf16(w & 0xFF) is
+// exact; 0x3F80 is 1.0) gives both bf16 values with no carry.  16 threads
+// of one byte row write its 256-byte slab rows' 16 chunks, so a quarter
+// warp's stores fall on 8 distinct chunks of a 128-byte line.
+//
+// What bounds it.  The product is block()'s, fed from shared memory; a
+// stage adds 64 KB of expanded stores (what block()'s cp.async ring writes
+// too) and ~30 integer instructions a thread and K step to its 192 KB of
+// ldmatrix reads and 1,024 mma, and reads 16x fewer bytes from L2 (4.5 KB
+// a stage for 64 KB of slabs).
+constexpr int kPkRows = kStage / 8;  // packed byte rows a stage
+constexpr int kPkRing = 4;           // packed stages in the ring
+constexpr uint32_t kBf16One = 0x3F80u;
+
+struct PackedStage {
+  uint8_t a[kPkRows][kBlock];  // row operand's byte rows
+  uint8_t b[kPkRows][kBlock];  // column operand's
+  uint32_t w[kStage];          // weight of stage row 16 b + r
+};
+
+struct PackedSmem {
+  Stage ex[2];                   // expanded stages, 2 x 64 KB
+  PackedStage ring[kPkRing];     // packed stages, 4 x 4.5 KB
+};
+// 149,504 bytes of the SM's 227 KB
+constexpr int kPkSmemBytes = static_cast<int>(sizeof(PackedSmem));
+static_assert(kThreads == 2 * kPkRows * kBlock / 16 && kThreads == kPkRows * 16,
+              "a 16-byte copy of a packed stage and 8 samples of a byte row a thread");
+
+// Bit plane `bit` of the 8 samples of `x` (one byte each) as 8 bf16 values
+// wv or 0, stage row 16 bit + r, chunk c of `slab` (at c ^ (r & 7)).
+__device__ __forceinline__ void expand8(uint8_t* slab, int r, int c, int bit, uint2 x,
+                                        uint32_t wv) {
+  const uint32_t lo = (x.x >> bit) & 0x01010101u;
+  const uint32_t hi = (x.y >> bit) & 0x01010101u;
+  // bytes (0, 1) and (2, 3) to bits 0 and 16: samples 2m, 2m + 1 of word m
+  const uint4 v = make_uint4(__byte_perm(lo, 0u, 0x4140) * wv, __byte_perm(lo, 0u, 0x4342) * wv,
+                             __byte_perm(hi, 0u, 0x4140) * wv, __byte_perm(hi, 0u, 0x4342) * wv);
+  *reinterpret_cast<uint4*>(slab + 2 * kBlock * (16 * bit + r) + 16 * (c ^ (r & 7))) = v;
+}
+
+// The bf16 bit pattern of the integer w & 0xFF (exact: 8 significant bits).
+__device__ __forceinline__ uint32_t bf16_byte(uint32_t w) {
+  return __float_as_uint(static_cast<float>(w & 0xFFu)) >> 16;
+}
+
+// A thread's share of expanding a packed stage: byte row r, samples 8c ..
+// 8c + 7, of both operands.
+template <bool kWeighted>
+struct Expand {
+  int r, c;
+
+  __device__ __forceinline__ Expand() : r(threadIdx.x / 16), c(threadIdx.x % 16) {}
+
+  __device__ __forceinline__ uint2 bytes(const uint8_t (&rows)[kPkRows][kBlock]) const {
+    return *reinterpret_cast<const uint2*>(&rows[r][8 * c]);
   }
 
-  // d[2h], d[2h + 1] of tile (mt, nt) are row 16 mt + g + 8h, columns
-  // 8 nt + 2t and 8 nt + 2t + 1 of the warp's 64 x 32
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
+  // bit plane `bit` of both operands' bytes xa, xb of stage ps into ex
+  __device__ __forceinline__ void operator()(const PackedStage& ps, Stage& ex, int bit, uint2 xa,
+                                             uint2 xb) const {
+    expand8(ex.a, r, c, bit, xa, kWeighted ? bf16_byte(ps.w[16 * bit + r]) : kBf16One);
+    expand8(ex.b, r, c, bit, xb, kBf16One);
+  }
+};
+
+// stage_mma's step in packed_block: bit plane ks of the next stage, if any.
+template <bool kWeighted>
+struct ExpandNext {
+  const Expand<kWeighted>& expand;
+  const PackedStage& ps;
+  Stage& ex;
+  uint2 xa, xb;
+  bool next;
+
+  __device__ __forceinline__ void operator()(int ks) const {
+    if (next) expand(ps, ex, ks, xa, xb);
+  }
+};
+
+// Called by all kThreads threads of the block, `smem` the kPkSmemBytes of
+// dynamic shared memory; the run of n_st stages from pattern p0, whole K
+// blocks of st_kt stages (p0 a multiple of 128 st_kt); `store` as block().
+template <bool kWeighted>
+__device__ __forceinline__ void packed_block(uint8_t* smem, const uint8_t* __restrict__ a,
+                                             const uint8_t* __restrict__ b, int64_t ld,
+                                             const uint32_t* __restrict__ w, int64_t p0, int n_st,
+                                             int st_kt, uint32_t* __restrict__ out,
+                                             int64_t ld_out, bool store) {
+  PackedSmem& sm = *reinterpret_cast<PackedSmem*>(smem);
+  const int tid = threadIdx.x;
+  // copy: threads 0-127 the row operand's 16 x 8 chunks, 128-255 the
+  // column operand's; threads 0-31 also 4 weights of bit tid / 4
+  const int cr = tid % kBlock / 8;
+  const int cc = tid % 8;
+  const uint8_t* src = (tid < kBlock ? a : b) + cr * ld + 16 * cc;
+  const int64_t kb = 16 * st_kt;  // byte rows a K block
+  auto load = [&](PackedStage& ps, int i) {
+    const int64_t row = p0 / 8 + static_cast<int64_t>(kPkRows) * i;
+    gram_u8::cp16((tid < kBlock ? ps.a[cr] : ps.b[cr]) + 16 * cc, src + row * ld);
+    if (kWeighted && tid < kStage / 4) {
+      // the stage's K block starts at pattern 8 (row - row % kb)
+      const int bit = tid / 4;
+      gram_u8::cp16(&ps.w[4 * tid],
+                    w + 8 * (row - row % kb) + bit * kb + row % kb + 4 * (tid % 4));
+    }
+  };
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int s = 0; s < kPkRing; ++s) {
+    if (s < n_st) load(sm.ring[s], s);
+    gram_u8::cp_commit();
+  }
+
+  const Expand<kWeighted> expand;
+  gram_u8::cp_wait<kPkRing - 1>();  // stage 0 has landed
+  __syncthreads();
+  {
+    const uint2 xa = expand.bytes(sm.ring[0].a);
+    const uint2 xb = expand.bytes(sm.ring[0].b);
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        uint2* dst = reinterpret_cast<uint2*>(
-            out + (64 * (warp / 4) + 16 * mt + g + 8 * h) * ld_out + 32 * (warp % 4) + 8 * nt +
-            2 * t);
-        uint2 v = make_uint2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-        if (!store) {
-          const uint2 o = *dst;
-          v = make_uint2(v.x + o.x, v.y + o.y);
-        }
-        *dst = v;
-      }
+    for (int bit = 0; bit < 8; ++bit) expand(sm.ring[0], sm.ex[0], bit, xa, xb);
+  }
+
+  const PatternRowFrag rows;
+  Sums sums;
+  for (int i = 0; i < n_st; ++i) {
+    gram_u8::cp_wait<kPkRing - 2>();  // this thread's copies of stage i + 1 have landed
+    // everyone's have; stage i's expansion is written; stage i - 1's mma
+    // (the readers of ex[(i + 1) % 2]) and stage i's expansion (the last
+    // reader of ring[i % kPkRing]) are done
+    __syncthreads();
+    const int nx = i + kPkRing;
+    if (nx < n_st) load(sm.ring[nx % kPkRing], nx);
+    gram_u8::cp_commit();
+
+    const PackedStage& ps = sm.ring[(i + 1) % kPkRing];
+    const bool next = i + 1 < n_st;
+    const ExpandNext<kWeighted> step{expand, ps, sm.ex[(i + 1) % 2],
+                                     next ? expand.bytes(ps.a) : make_uint2(0u, 0u),
+                                     next ? expand.bytes(ps.b) : make_uint2(0u, 0u), next};
+    const Stage& st = sm.ex[i % 2];
+    stage_mma(gram_u8::smem_addr(st.a), gram_u8::smem_addr(st.b), rows, sums, step);
+    if ((i + 1) % st_kt == 0) sums.flush();
+  }
+  sums.write(out, ld_out, store);
 }
 
 }  // namespace gram_bf16

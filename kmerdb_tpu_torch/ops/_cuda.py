@@ -28,8 +28,8 @@ SOURCES = ("gram_pk_tri.cu", "gram_pk_rows.cu", "cross_pk.cu", "tril_tiles.cu",
 #: the C entry points of csrc/gram_sweep.cu, one a variant of
 #: ops/sweep.py, all with the same arguments; SWEEP_SPLIT_ENTRIES take two
 #: more, k_splits and the split sums' scratch
-SWEEP_ENTRIES = ("int8", "bf16", "bf16_ns", "nodot", "dotonly_s8")
-SWEEP_SPLIT_ENTRIES = ("dotonly", "dotonly_t")
+SWEEP_ENTRIES = ("int8", "nodot", "dotonly_s8")
+SWEEP_SPLIT_ENTRIES = ("bf16", "bf16_ns", "dotonly", "dotonly_t")
 HEADERS = ("gram_bf16.cuh", "gram_pk.cuh", "gram_u8.cuh", "mma_bf16.cuh",
            "mma_s8.cuh", "tri.cuh")
 #: sm_90a: the Hopper target (plain sm_90 refuses wgmma, which later
@@ -127,6 +127,7 @@ def lib() -> ctypes.CDLL:
             ("kmerdb_gram_u32", [vp, vp, vp, i64, i64, i32, i32, vp]),
             ("kmerdb_gram_u8_smem_bytes", []),
             ("kmerdb_gram_bf16_smem_bytes", []),
+            ("kmerdb_gram_bf16_pk_smem_bytes", []),
             ("kmerdb_tril_tiles", [vp, vp, i64, i32, vp]),
             ("kmerdb_gather_tiles",
              [vp, vp, vp, vp, i64, i64, i64, i64, i32, vp]),

@@ -10,8 +10,9 @@ the P patterns in K blocks of kt:
 * ``int8``: C += Bi^T diag(w & 0x7F) Bj on packed uint8[P/8, S] operands,
   the production s8 body (gram_u32_pk_tri at one limb);
 * ``bf16``, ``bf16_ns``: C += Bi^T diag(w & 0xFF) Bj (or without w) on
-  packed operands unpacked to bf16, f32 sums flushed into C at the end of
-  each K block (exact: a block's sum is below kt * 255 < 2^24);
+  packed operands expanded to bf16 on chip, f32 sums truncated into C at
+  the end of each K block (exact: a block's sum is below kt * 255 < 2^24;
+  on the bf16 tensor cores, over a grid split like dotonly's);
 * ``nodot``: the unpack alone, C_tile[x, y] += U_i[x, y] + U_j[x, y] for
   x, y < tile in each K block, U the block of the tile's columns unpacked
   b-major (row b * kt/8 + r is bit b of byte row r); needs kt >= tile;
@@ -44,7 +45,11 @@ VARIANTS = ("bf16", "bf16_ns", "int8", "nodot", "dotonly", "dotonly_T",
 PACKED = ("bf16", "bf16_ns", "int8", "nodot")
 #: the variants whose grid is split over runs of whole K blocks; their
 #: wrappers take ``k_splits=`` (default: dot_splits)
-SPLIT = ("dotonly", "dotonly_T")
+SPLIT = ("bf16", "bf16_ns", "dotonly", "dotonly_T")
+#: the split variants on gram_bf16.cuh's packed block
+PACKED_BF16 = tuple(v for v in SPLIT if v in PACKED)
+#: the variants over unpacked bf16 operands, which take any bf16 values
+UNPACKED_BF16 = tuple(v for v in SPLIT if v not in PACKED)
 #: dot_splits takes the fewest splits within this factor of a full card
 SPLIT_SLACK = 1.05
 
@@ -96,15 +101,16 @@ def n_blocks(S: int, tile: int) -> int:
 
 
 def dot_splits(blocks: int, k_blocks: int, n_sm: int) -> int:
-    """k_splits of the dotonly grid (csrc/gram_sweep.cu): the runs of whole
+    """k_splits of the bf16 grids (csrc/gram_sweep.cu): the runs of whole
     K blocks each of the `blocks` output blocks is cut into, so that the
     grid fills the card's n_sm SMs, one block each (128 accumulators a
     thread hold a block above 128 registers).  A grid takes
     ceil(blocks * z / n_sm) waves of ceil(k_blocks / z) K blocks; this is
     the fewest splits within SPLIT_SLACK of the best such time or of a full
     card, each split's sums costing a pass of scratch.  At the tool's
-    defaults (136 blocks, 256 K blocks, 132 SMs): 16, 272 K blocks a
-    block's time against 263.8 on a full card and 512 at one split."""
+    defaults (136 blocks, 132 SMs): 16 for dotonly's 256 K blocks (P 2^17),
+    272 K blocks a block's time against 263.8 on a full card and 512 at one
+    split; 13 for bf16's 2,048 (P 2^20), 2,212 against 2,110 and 4,096."""
     cost = {z: -(-blocks * z // n_sm) * -(-k_blocks // z)
             for z in range(1, k_blocks + 1)}
     limit = max(min(cost.values()), SPLIT_SLACK * blocks * k_blocks / n_sm)
@@ -121,12 +127,14 @@ def _make(variant: str):
         _require(k_splits is None or (variant in SPLIT
                                       and isinstance(k_splits, int)
                                       and 1 <= k_splits <= P // kt),
-                 f"k_splits is for {' and '.join(SPLIT)} and must lie in "
+                 f"k_splits is for {', '.join(SPLIT)} and must lie in "
                  f"1..P / kt")
         if gram._kernel_device(w, Bi, Bj, C) == "cpu":
             return plain(variant, w, Bi, Bj, C, kt=kt, tile=tile)
         _require(all(t.data_ptr() % 16 == 0 for t in (Bi, Bj, C)),
                  "Bi, Bj and C must be 16-byte aligned")
+        _require(variant != "bf16" or w.data_ptr() % 16 == 0,
+                 "bf16's w must be 16-byte aligned")
         args = (w.data_ptr(), Bi.data_ptr(), Bj.data_ptr(), C.data_ptr(), P,
                 C.shape[0], kt, tile)
         if variant in SPLIT:
@@ -139,6 +147,7 @@ def _make(variant: str):
                 if z > 1 else None
             args += (z, partials.data_ptr() if partials is not None
                      else None)
+            kernel.k_splits = z
         gram._cuda_call(getattr(_cuda.lib(), entry), *args, device=C.device)
         kernel.launches += 1
         return C
@@ -149,6 +158,8 @@ def _make(variant: str):
                       f"plain().  Replaces the {variant} variant of "
                       f"tools/kernel_sweep.py build.")
     kernel.launches = 0
+    # a SPLIT variant's k_splits of its last launch on the card
+    kernel.k_splits = None
     return kernel
 
 

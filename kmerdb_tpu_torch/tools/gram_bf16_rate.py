@@ -1,22 +1,26 @@
-"""Rate of the bf16 block (csrc/gram_bf16.cuh) on one CUDA card.
+"""Rate of the bf16 blocks (csrc/gram_bf16.cuh) on one CUDA card.
 
-Prints ptxas's registers and spills of the kernel sweep's ``dotonly`` and
-``dotonly_T`` kernel and of their split sum, then, for each of the two at
-the sweep's defaults (S 2,048, P 2^17, kt 512, tile 128, the tool's 0/1
-operands), after one call held to its plain version exactly:
+Prints ptxas's registers and spills of the kernel sweep's bf16 kernels
+(``dotonly`` and ``dotonly_T`` on unpacked operands, ``bf16`` and
+``bf16_ns`` on packed ones) and of their split sum, then, for each of the
+four at the sweep's defaults (S 2,048, P 2^17 for ``dotonly*`` and 2^20 for
+the packed two, as ``kernel_sweep.main``; ``--P`` sets one P for every
+variant), kt 512, tile 128, the tool's operands, after one call held to its
+plain version exactly:
 
 * the time a call (CUDA events over a chain) at k_splits 1, 2, 4, 8, 16
   and 32 and at ``sweep.dot_splits``' choice, each with its share of the
   bound (``kernel_sweep.bound``);
 * at that choice, the profiler's device time of the block kernel and of
   the split sum (``torch.profiler``, summed over the chain);
-* the library call of ``kernel_sweep.library_call`` (cuBLAS's bf16
-  product with an f32 result, over the full square).
+* the library call of ``kernel_sweep.library_call`` where the variant has
+  one (cuBLAS's bf16 product with an f32 result, over the full square).
 
 One JSON line a case.  Usage, on a machine with a CUDA card (exits 1
 without one):
 
     python -m kmerdb_tpu_torch.tools.gram_bf16_rate [--splits 1,2,4,8,16,32]
+        [--variants bf16,bf16_ns,dotonly,dotonly_T] [--P N]
 """
 
 import argparse
@@ -28,7 +32,8 @@ import torch
 from ..ops import _cuda, gram, sweep
 from . import gram_u8_rate, kernel_sweep
 
-KERNELS = ("sweep_dot_bf16_kernel", "dot_split_sum_kernel")
+KERNELS = ("sweep_dot_bf16_kernel", "sweep_pk_bf16_kernel",
+           "dot_split_sum_kernel")
 
 
 def _profile_ms(fn, reps: int) -> dict:
@@ -84,19 +89,24 @@ def run(variant: str, S: int, P: int, kt: int, tile: int, splits,
                                 for k, v in prof.items()}
         recs.append(rec)
     lib = kernel_sweep.library_call(variant, Bi, Bj)
-    ms = gram_u8_rate._ms(lib, reps)
-    recs.append({**base, "library_op": kernel_sweep.LIBRARY_OPS[variant],
-                 "library_ms": ms,
-                 "library_tflops": 2.0 * S * S * P / ms / 1e9})
+    if lib is not None:
+        ms = gram_u8_rate._ms(lib, reps)
+        recs.append({**base, "library_op": kernel_sweep.LIBRARY_OPS[variant],
+                     "library_ms": ms,
+                     "library_tflops": 2.0 * S * S * P / ms / 1e9})
     return recs
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m kmerdb_tpu_torch.tools.gram_bf16_rate",
-        description="Time the bf16 block of the sweep's dotonly variants.")
+        description="Time the bf16 blocks of the sweep's bf16 variants.")
     ap.add_argument("--S", type=int, default=2048)
-    ap.add_argument("--P", type=int, default=1 << 17)
+    ap.add_argument("--P", type=int, default=None,
+                    help="patterns of every variant (default: 2^20, and "
+                         "2^17 for the unpacked dotonly*, whose operands "
+                         "are 8-16x larger)")
+    ap.add_argument("--variants", default=",".join(sweep.SPLIT))
     ap.add_argument("--kt", type=int, default=512)
     ap.add_argument("--tile", type=int, default=128)
     ap.add_argument("--splits", default="1,2,4,8,16,32")
@@ -109,8 +119,9 @@ def main(argv=None) -> int:
     _cuda.lib()
     for ln in gram_u8_rate._ptxas(_cuda.build_log(), KERNELS):
         print(ln)
-    for v in sweep.SPLIT:
-        for rec in run(v, args.S, args.P, args.kt, args.tile,
+    for v in args.variants.split(","):
+        P = args.P or (1 << 20 if v in sweep.PACKED else 1 << 17)
+        for rec in run(v, args.S, P, args.kt, args.tile,
                        [int(x) for x in args.splits.split(",")], args.reps):
             print(json.dumps(rec), flush=True)
     return 0

@@ -5,8 +5,9 @@ ops/sweep.py (csrc/gram_sweep.cu) on synthetic operands resident on the
 card, so that the triangle Gram's time splits into its parts:
 
   int8        the production s8 body (unpack, weight limb, mma.sync)
-  bf16        unpack to bf16, weight scale, f32 product
-  bf16_ns     the same without the weight scale
+  bf16        packed operands expanded to bf16 with the weight on chip, the
+              product on the bf16 tensor cores (mma.sync)
+  bf16_ns     the same without the weight
   nodot       the unpack alone
   dotonly     pre-unpacked bf16 operands, the product alone (mma.sync)
   dotonly_T   the same with Bi laid out [S, P]

@@ -742,7 +742,7 @@ SWEEP_CASES = [(512, 128, 512, "random"), (1024, 256, 512, "random"),
 SWEEP_PARAMS = [(v, *case) for case in SWEEP_CASES for v in sweep.VARIANTS] \
     + [("dotonly_s8", 512, 128, 512, "signed"),
        ("dotonly_s8", 1024, 256, 768, "signed")] \
-    + [(v, kt, tile, 512, "halves") for v in sweep.SPLIT
+    + [(v, kt, tile, 512, "halves") for v in sweep.UNPACKED_BF16
        for kt, tile in ((128, 128), (512, 256))]
 
 
@@ -835,6 +835,65 @@ def test_sweep_dot_split_boundaries(card, variant, P, kt, k_splits):
     torch.cuda.synchronize()
     assert kern.launches == n + 1
     assert torch.equal(got, want) and not torch.equal(got, C)
+
+
+@pytest.mark.parametrize("variant", sweep.PACKED_BF16)
+@pytest.mark.parametrize("k_splits", [1, 3, None])
+def test_sweep_packed_splits_match_plain(card, variant, k_splits):
+    """bf16 and bf16_ns on gram_bf16.cuh's packed block over the split-K
+    grid (None: the planner's choice), at kt 512 and 128: random bytes,
+    Bi != Bj, weights over every bit with 127, 128, 255, 256 among them, C
+    seeded at 2^31 and above."""
+    S, P = 512, 8192
+    rng = np.random.default_rng(len(variant) + (k_splits or 0))
+    Bi, Bj = (torch.from_numpy(rng.integers(0, 256, size=(P // 8, S),
+                                            dtype=np.uint8)).to(card)
+              for _ in range(2))
+    w = _u32(rng, P)
+    w[:4] = (127, 128, 255, 256)
+    w = torch.from_numpy(w.view(np.int32)).to(card)
+    C = torch.from_numpy((_u32(rng, (S, S)) | np.uint32(1 << 31))
+                         .view(np.int32)).to(card)
+    kern = sweep.KERNELS[variant]
+    for kt in (512, 128):
+        n = kern.launches
+        want = sweep.plain(variant, w, Bi, Bj, C.clone(), kt=kt, tile=128)
+        got = kern(w, Bi, Bj, C.clone(), kt=kt, tile=128, k_splits=k_splits)
+        torch.cuda.synchronize()
+        assert kern.launches == n + 1
+        assert kern.k_splits == (k_splits or sweep.dot_splits(
+            sweep.n_blocks(S, 128), P // kt, gram._n_sm(card.index)))
+        assert torch.equal(got, want) and not torch.equal(got, C)
+
+
+@pytest.mark.parametrize("variant", sweep.PACKED_BF16)
+@pytest.mark.parametrize("k_splits", [1, None])
+def test_sweep_packed_flush_case(card, variant, k_splits):
+    """Every byte 0xFF and weights drawn from 129..255 at kt 65,536, P
+    131,072, S 256: each K block's f32 sum per cell is at most 255 *
+    65,536, below 2^24, and a lower cell of bf16 gains the weights' sum,
+    about 2.5 * 10^7 > 2^24 and not a multiple of a large power of two,
+    which a kernel that carried f32 sums across K blocks would round
+    (bf16_ns gains 2 * 65,536 and runs the same block).  C seeded at 2^31
+    and above."""
+    S, P, kt = 256, 131072, 65536
+    rng = np.random.default_rng(7)
+    Bp = torch.full((P // 8, S), 255, dtype=torch.uint8, device=card)
+    w_np = rng.integers(129, 256, size=P, dtype=np.int32)
+    w = torch.from_numpy(w_np).to(card)
+    C = torch.from_numpy((_u32(rng, (S, S)) | np.uint32(1 << 31))
+                         .view(np.int32)).to(card)
+    want = sweep.plain(variant, w, Bp, Bp, C.clone(), kt=kt, tile=128)
+    got = sweep.KERNELS[variant](w, Bp, Bp, C.clone(), kt=kt, tile=128,
+                                 k_splits=k_splits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    band = torch.arange(S, device=card) // 128
+    lower = band[:, None] >= band[None, :]
+    gain = int(w_np.sum()) if variant == "bf16" else 2 * kt
+    assert variant != "bf16" or gain > 1 << 24
+    moved = (got.to(torch.int64) - C.to(torch.int64)) & 0xFFFFFFFF
+    assert bool((moved[lower] == gain).all()) and not moved[~lower].any()
 
 
 @pytest.mark.skipif(not native.available, reason="no native host runtime")

@@ -6,7 +6,9 @@ CPU tensors) is held to the variant that kmerdb_tpu's
 operands, made with numpy from a seed, at two geometries, with weights of
 128 and 256 and above, Bi != Bj and C seeded non-zero; dotonly and
 dotonly_T also on half-integer operands, whose per-K-block truncation
-shows.  Tolerance: exact equality of the uint32 matrices.  Then the tool's
+shows; bf16 and bf16_ns also at K blocks of 128 (one stage of the packed
+block a K block) and with every byte 0xFF and every weight byte 255.
+Tolerance: exact equality of the uint32 matrices.  Then the tool's
 own functions on a CPU device: ops/device_a2a.kernel_bench's chained C and
 its truncation under KMERDB_A2A_RESIDENT_MB, the records of run_variant
 and sweep_on_db, that sweep_on_db gives the geometry knobs back, and the
@@ -52,10 +54,13 @@ def jax_sweep():
 HALVES = np.array([-1.0, -0.5, 0.0, 0.5, 1.0, 1.5], np.float32)
 
 
-def _operands(variant, rng, signed=False, halves=False):
+def _operands(variant, rng, signed=False, halves=False, ones=False):
     """(jax operands, port operands) of one variant: Bi != Bj; with
     `signed`, dotonly_s8's int8 over the whole of -128..127; with `halves`,
-    bf16 values in HALVES (exact in bf16)."""
+    bf16 values in HALVES (exact in bf16); with `ones`, packed bytes 0xFF."""
+    if ones:
+        B = np.full((P // 8, S), 255, np.uint8)
+        return (B, B), (torch.from_numpy(B), torch.from_numpy(B))
     if halves:
         Ri, Rj = (rng.choice(HALVES, size=(P, S)) for _ in range(2))
         if variant == "dotonly_T":
@@ -83,11 +88,15 @@ def _operands(variant, rng, signed=False, halves=False):
             tuple(torch.from_numpy(R).to(torch.bfloat16) for R in (Ri, Rj)))
 
 
-#: every variant at two geometries, dotonly_s8 on signed operands, and
-#: dotonly and dotonly_T on half-integer ones at K blocks of 128 and 512
+#: every variant at two geometries, dotonly_s8 on signed operands, dotonly
+#: and dotonly_T on half-integer ones at K blocks of 128 and 512, and bf16
+#: and bf16_ns at K blocks of 128 and with every bit and weight byte set
 VARIANT_CASES = [(v, kt, tile, "") for kt, tile in ((512, 128), (1024, 256))
                  for v in sweep.VARIANTS] + [("dotonly_s8", 512, 128, "signed")] \
-    + [(v, kt, 128, "halves") for v in sweep.SPLIT for kt in (128, 512)]
+    + [(v, kt, 128, "halves") for v in sweep.UNPACKED_BF16
+       for kt in (128, 512)] \
+    + [(v, 128, 128, "") for v in sweep.PACKED_BF16] \
+    + [(v, 512, 128, "ones") for v in sweep.PACKED_BF16]
 
 
 @pytest.mark.parametrize(
@@ -101,8 +110,11 @@ def test_variant_matches_jax_interpreted(jax_sweep, variant, kt, tile,
     w = rng.integers(0, 1 << 32, size=(P, 1), dtype=np.uint64) \
         .astype(np.uint32)
     w[:6, 0] = (127, 128, 255, 256, 257, 0xFFFFFFFF)  # each body masks w
+    if operands == "ones":
+        w[:] = 0xFFFFFFFF                         # every weight byte 255
     (ji, jj), (ti, tj) = _operands(variant, rng, signed=operands == "signed",
-                                   halves=operands == "halves")
+                                   halves=operands == "halves",
+                                   ones=operands == "ones")
     C0 = rng.integers(0, 1 << 32, size=(S, S), dtype=np.uint64) \
         .astype(np.uint32)
 
@@ -123,6 +135,11 @@ def test_variant_matches_jax_interpreted(jax_sweep, variant, kt, tile,
     upper = band[:, None] < band[None, :]
     np.testing.assert_array_equal(want[upper], C0[upper])
     assert (want[~upper] != C0[~upper]).any()
+    if operands == "ones":
+        # every lower cell gains 255 a pattern (bf16_ns: 1)
+        gain = (255 if variant == "bf16" else 1) * P
+        np.testing.assert_array_equal(want[~upper],
+                                      C0[~upper] + np.uint32(gain))
     if operands == "halves":
         # one truncation of the whole sum gives other numbers: the K
         # blocks' truncation is part of the function
@@ -186,6 +203,7 @@ def test_run_variant_record(variant):
 
 @pytest.mark.parametrize("blocks,k_blocks,n_sm,want", [
     (136, 256, 132, 16),     # the tool's defaults: S 2,048, P 2^17, kt 512
+    (136, 2048, 132, 13),    # bf16's: P 2^20, 2,212 K blocks against 2,110
     (10, 16, 132, 8),        # phase 23a's S 512, P 8,192: one wave of 80
     (1, 1, 132, 1),          # one K block: no split
     (10, 5, 132, 5),         # an odd number of K blocks, one each
@@ -202,23 +220,34 @@ def test_dot_splits_fill_the_card(blocks, k_blocks, n_sm, want):
 
 def test_k_splits_is_checked_and_leaves_the_sums_alone():
     rng = np.random.default_rng(9)
-    w, Bi, Bj = kernel_sweep.operands("dotonly", S, P, "cpu")
-    Bi = torch.from_numpy(rng.choice(HALVES, size=(P, S))).to(torch.bfloat16)
     C0 = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(S, S),
                                        dtype=np.int64).astype(np.int32))
-    want = sweep.plain("dotonly", w, Bi, Bj, C0.clone(), kt=512, tile=128)
-    for z in (1, 3, P // 512):
-        got = sweep.KERNELS["dotonly"](w, Bi, Bj, C0.clone(), kt=512,
-                                       tile=128, k_splits=z)
-        assert torch.equal(got, want)
-    for bad in (0, P // 512 + 1, 2.0):
+    assert set(sweep.SPLIT) == {"bf16", "bf16_ns", "dotonly", "dotonly_T"}
+    assert sweep.PACKED_BF16 == ("bf16", "bf16_ns")
+    assert sweep.UNPACKED_BF16 == ("dotonly", "dotonly_T")
+    for v in ("dotonly", *sweep.PACKED_BF16):
+        w, Bi, Bj = kernel_sweep.operands(v, S, P, "cpu", seed=9)
+        if v == "dotonly":
+            Bi = torch.from_numpy(rng.choice(HALVES, size=(P, S))) \
+                .to(torch.bfloat16)
+        else:
+            Bj = torch.from_numpy(rng.integers(0, 256, size=(P // 8, S),
+                                               dtype=np.uint8))
+        want = sweep.plain(v, w, Bi, Bj, C0.clone(), kt=512, tile=128)
+        assert not torch.equal(want, C0)
+        for z in (1, 3, P // 512):
+            got = sweep.KERNELS[v](w, Bi, Bj, C0.clone(), kt=512,
+                                   tile=128, k_splits=z)
+            assert torch.equal(got, want)
+        for bad in (0, P // 512 + 1, 2.0):
+            with pytest.raises(ValueError, match="k_splits"):
+                sweep.KERNELS[v](w, Bi, Bj, C0.clone(), kt=512,
+                                 tile=128, k_splits=bad)
+    for v in ("int8", "nodot", "dotonly_s8"):
+        w8, B8, _ = kernel_sweep.operands(v, S, P, "cpu")
         with pytest.raises(ValueError, match="k_splits"):
-            sweep.KERNELS["dotonly"](w, Bi, Bj, C0.clone(), kt=512,
-                                     tile=128, k_splits=bad)
-    w8, B8, _ = kernel_sweep.operands("dotonly_s8", S, P, "cpu")
-    with pytest.raises(ValueError, match="k_splits"):
-        sweep.KERNELS["dotonly_s8"](w8, B8, B8, C0.clone(), kt=512,
-                                    tile=128, k_splits=1)
+            sweep.KERNELS[v](w8, B8, B8, C0.clone(), kt=512,
+                             tile=128, k_splits=1)
 
 
 def _random_db(S_db=300, n_pat=3000, max_w=1 << 12, seed=2):
@@ -346,3 +375,11 @@ def test_rate_tool_reads_the_block_kernels_from_ptxas():
     assert [ln for ln in got if not ln.startswith(" ")] == [names[0], names[2]]
     assert sum("Used 121 registers" in ln for ln in got) == 1
     assert not any("118" in ln for ln in got)
+
+
+def test_bf16_rate_tool_without_cuda_exits_nonzero(capsys):
+    from kmerdb_tpu_torch.tools import gram_bf16_rate
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    assert gram_bf16_rate.main(["--variants", "bf16,bf16_ns"]) == 1
+    assert "CUDA" in capsys.readouterr().err
