@@ -17,10 +17,14 @@ one per case), each with its seconds:
    query contraction's matmul_acc_kernel, the records matmul_u32_acc and
    matmul_u32, whose shared memory is dynamic: the library's
    kmerdb_gram_u8_smem_bytes); on the bf16 ones the sweep's dotonly and
-   dotonly_T (gram_bf16.cuh, dynamic: kmerdb_gram_bf16_smem_bytes), and
-   on its packed block (dynamic: kmerdb_gram_bf16_pk_smem_bytes) the
-   sweep's bf16 and bf16_ns and the bf16 engine's triangle, stripe and
-   rectangle (gram_pk_bf16.cu);
+   dotonly_T (gram_bf16.cuh's block, mma.sync, dynamic:
+   kmerdb_gram_bf16_smem_bytes), and on its packed block (wgmma, dynamic:
+   kmerdb_gram_bf16_pk_smem_bytes) the sweep's bf16 and bf16_ns and the
+   bf16 engine's triangle, stripe and rectangle (gram_pk_bf16.cu), and the
+   sweep's nodot on that block's staging; each record's design (wgmma,
+   staged or mma.sync) and the product instructions its SASS holds
+   (``cuobjdump -sass``): the packed block's kernels fail the phase unless
+   HGMMA alone;
 3. the 4,096-sample x 30 kbp scale corpus (the ICTV-scale stand-in of
    bench.py) and its database, built through the port's CLI entry point;
 4. the matrix route's kernels against their plain PyTorch versions on the
@@ -160,7 +164,9 @@ one per case), each with its seconds:
     case: every byte 0xFF, weights drawn from 129..255, kt 65,536, P
     131,072, S 256, C seeded at 2^31 and above, at k_splits 1 and the
     planner's, where each K block's sum stays below 2^24 and each lower
-    cell of ``bf16`` gains the weights' sum, above 2^24; (b) the tool's
+    cell of ``bf16`` gains the weights' sum, above 2^24; ``nodot`` (the
+    packed block's staging with no product, split K) also at k_splits 1
+    and 3; (b) the tool's
     ``run_variant`` of each at its defaults (S 2,048, P 2^20, 2^17 for
     ``dotonly*``, kt 512, tile 128;
     a chain of 1 + 5 calls, the launch counters reset before it and read
@@ -175,7 +181,10 @@ one per case), each with its seconds:
     ``bf16_ns`` a line with their share of the bound and two yardsticks:
     the ``int8`` variant's time (the same function at one 7-bit limb on
     the int8 cores) and ``dotonly``'s scaled to P 2^20 (the same product
-    on unpacked slabs; an extrapolation, printed only);
+    on unpacked slabs; an extrapolation, printed only), and the packed
+    block's staging split: ``nodot`` (its staging alone), ``bf16`` and
+    ``bf16_ns``, and their difference (the product), in the records of
+    ``sweep_bf16`` and ``sweep_nodot`` too;
     (c) ``sweep_on_db`` on the 4,096-sample database at kts 256, 512, 1024 x
     tiles 128, 256 (``kernel_bench``; its ``gram_pk_tri`` launches those of
     its chains, the knobs restored); (d) the ``int8`` variant equals
@@ -195,6 +204,9 @@ one per case), each with its seconds:
     from 129..255, kt 65,536, P 131,072), where a block that kept its f32
     sums across K blocks would round.  Each timed with the s8 kernel on
     the same operands and its bound (bf16 operations over the bf16 peak);
+    at the stripe's shape also cuBLAS's bf16 ``torch.mm(...,
+    out_dtype=torch.float32)`` of the expanded operands (``cublas_bf16_ms``,
+    a yardstick only: no per-K-block truncation, no unpack);
     (b) the CLI under the engine, each call's launch counters reset
     before and read after: the bf16 kernels launched as the call's plan
     says and no s8 Gram, ``last_stats["engine"] == "bf16"``, the CSV
@@ -217,9 +229,11 @@ variants and the bf16 engine's kernels, whose records also hold
 ``s8_ms``, the s8 kernel's time on the same operands) and its bytes
 (inputs read once, outputs written once) over the memory rate, all of an
 H100 SXM at 700 W; the kernels on the tensor
-cores (int8 and bf16) also hold ptxas's ``registers`` and ``spill_bytes``
-and their ``smem_bytes``; the query contraction's ``library_ms`` is its
-yardstick.  The next-to-last line
+cores (int8 and bf16, and the sweep's nodot) also hold ptxas's
+``registers`` and ``spill_bytes``, their ``smem_bytes``, their ``design``
+and the product instructions of their SASS (``sass_mma``); the sweep's
+the stripe's bf16 form its ``cublas_bf16_ms``; the query contraction's ``library_ms``
+is its yardstick.  The next-to-last line
 is a JSON object of the kernels, the last ``{"ok": true, "device":
 {...}}``.  A failure exits non-zero without them.
 The script and the port import nothing of JAX: an import blocker refuses
@@ -1360,6 +1374,13 @@ def _high_c(torch, rng, shape, dev):
                              | np.uint32(1 << 31)).view(np.int32)).to(dev)
 
 
+def _expanded(torch, gram, Bp, step: int = 4096):
+    """bf16[8 r, S] 0/1 rows of the packed uint8[r, S] Bp (row 8 i + b is
+    bit b of packed row i), unpacked step packed rows at a time."""
+    return torch.cat([gram._unpack_bits(Bp[i:i + step], torch.bfloat16)
+                      for i in range(0, Bp.shape[0], step)])
+
+
 def check_bf16_kernels(torch, gram, device_a2a, db, big, rng) -> dict:
     """Phase 24a: the bf16 engine's triangle, stripe and rectangle ==
     their plain versions, exactly, at the routes' shapes (the module's
@@ -1469,7 +1490,20 @@ def check_bf16_kernels(torch, gram, device_a2a, db, big, rng) -> dict:
              rows * (S_pad // 8 + 4) + 8 * R * S_pad,
              3 if n_limbs == 1 else 1, rows=rows, R=R, rt0=rt0,
              S_pad=S_pad, kt=kt_c, tile=tile, n_limbs=n_limbs)
-    del Bp, w
+    del w
+    # a yardstick at the stripe's shape: cuBLAS's bf16 product of the
+    # expanded operands, the weights folded into the rows (exact below
+    # 256), with an f32 result; not the function (no per-K-block
+    # truncation, no unpack)
+    r0 = rt0 * tile
+    w_nat = torch.from_numpy(np.pad(w_db, (0, rows - w_db.size))
+                             .astype(np.float32)).to(dev).to(torch.bfloat16)
+    A = _expanded(torch, gram, Bp[:, r0:r0 + R]) * w_nat[:, None]
+    B = _expanded(torch, gram, Bp)
+    del Bp
+    out["gram_pk_rows_bf16"][0]["cublas_bf16_ms"] = _cuda_ms(
+        torch, lambda: torch.mm(A.T, B, out_dtype=torch.float32), 3)
+    del A, B, w_nat
     torch.cuda.empty_cache()
 
     # the flush case of every form: each K block's f32 sum below 2^24, a
@@ -1764,7 +1798,7 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
                    f"integer operands (kt {kt}, tile {tile}, "
                    f"max_abs_err={err})")
             res[v]["errs"].append(err)
-    for v in sweep.PACKED_BF16:
+    for v in (*sweep.PACKED_BF16, "nodot"):
         # k_splits 1 and 3 beside the planner's choice above
         w, Bi, Bj = _sweep_operands(torch, sweep, v, 512, 8192, rng, dev)
         C0 = _random_c(torch, rng, 512, dev)
@@ -1785,8 +1819,8 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
         f"{len(sweep.VARIANTS)} variants == plain at S 512, P 8192, (kt, "
         f"tile) (512, 128) and (1024, 256), Bi != Bj, C seeded non-zero; "
         f"{' and '.join(sweep.UNPACKED_BF16)} also on half-integer operands;"
-        f" {' and '.join(sweep.PACKED_BF16)} also at k_splits 1 and 3, and "
-        f"on the flush case (every byte 0xFF, weights in 129..255, kt "
+        f" {', '.join(sweep.PACKED_BF16)} and nodot also at k_splits 1 and 3,"
+        f" {' and '.join(sweep.PACKED_BF16)} on the flush case (every byte 0xFF, weights in 129..255, kt "
         f"{FLUSH_KT}, P {FLUSH_P}, S {FLUSH_S}: each lower cell gains the "
         f"weights' sum, > 2^24, for bf16) at k_splits 1 and the planner's")
 
@@ -1853,6 +1887,16 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
             f"(x{r['per_call_ms'] / int8_ms:.2f}), dotonly x "
             f"{SWEEP_P // SWEEP_P_UNPACKED} {dot_ms:.4f} ms "
             f"(x{r['per_call_ms'] / dot_ms:.2f}: the packed staging's cost)")
+    # packed_block's time split: nodot runs its staging, and adds that bf16
+    # (bf16_ns) does not, on the same grid and split; bf16 its staging and
+    # product
+    stage_ms = res["nodot"]["per_call_ms"]
+    for v in sweep.PACKED_BF16:
+        ms = res[v]["per_call_ms"]
+        say(f"[23b staging split] {v} {ms:.4f} ms, nodot {stage_ms:.4f} ms "
+            f"({100 * stage_ms / ms:.1f}%), {v} less nodot (nodot includes "
+            f"its adds) {ms - stage_ms:.4f} ms, k_splits "
+            f"{res[v]['k_splits']} / {res['nodot']['k_splits']}")
 
     t = time.perf_counter()
     _reset_launches(gram)
@@ -1903,7 +1947,9 @@ def sweep_phases(torch, gram, device_a2a, db, db_path, gram_tri_case, rng,
 
 #: the kernels on the tensor cores by their records' names, with a part of
 #: their (mangled) names: the packed Gram's (gram_pk.cuh's block), the
-#: unpacked Gram's (gram_u8.cuh's block) and the bf16 one (gram_bf16.cuh's)
+#: unpacked Gram's (gram_u8.cuh's block) and the bf16 ones (gram_bf16.cuh's
+#: block and packed_block), and the sweep's nodot, packed_block's staging
+#: alone; ptxas's resources of each go into its record
 MMA_KERNELS = {"gram_pk_tri": "gram_pk_tri_kernel",
                "gram_pk_rows": "gram_pk_rows_kernel",
                "cross_u32_pk": "cross_pk_kernel",
@@ -1919,15 +1965,28 @@ MMA_KERNELS = {"gram_pk_tri": "gram_pk_tri_kernel",
                "sweep_bf16_ns": "sweep_pk_bf16_kernelILb0E",
                "gram_pk_tri_bf16": "gram_pk_tri_bf16_kernel",
                "gram_pk_rows_bf16": "gram_pk_rows_bf16_kernel",
-               "cross_u32_pk_bf16": "cross_pk_bf16_kernel"}
+               "cross_u32_pk_bf16": "cross_pk_bf16_kernel",
+               "sweep_nodot": "sweep_nodot_kernel"}
 #: those of gram_u8.cuh's block, whose shared memory is dynamic
 U8_KERNELS = ("gram_u32_tri", "gram_u32", "sweep_dotonly_s8",
               "matmul_u32_acc", "matmul_u32")
 #: those of gram_bf16.cuh's block, dynamic too
 BF16_KERNELS = ("sweep_dotonly", "sweep_dotonly_T")
-#: those of its packed block, dynamic too
+#: those of its packed block (and its staging), dynamic too
 BF16_PK_KERNELS = ("sweep_bf16", "sweep_bf16_ns", "gram_pk_tri_bf16",
-                   "gram_pk_rows_bf16", "cross_u32_pk_bf16")
+                   "gram_pk_rows_bf16", "cross_u32_pk_bf16", "sweep_nodot")
+#: those on packed_block's wgmma, whose SASS must hold HGMMA and no HMMA
+#: or LDSM (phase 2)
+WGMMA_KERNELS = ("sweep_bf16", "sweep_bf16_ns", "gram_pk_tri_bf16",
+                 "gram_pk_rows_bf16", "cross_u32_pk_bf16")
+
+
+def _design(record: str) -> str:
+    """How a tensor-core record computes: wgmma (packed_block), staged
+    (nodot: packed_block's staging, no product) or mma.sync."""
+    if record in WGMMA_KERNELS:
+        return "wgmma"
+    return "staged" if record == "sweep_nodot" else "mma.sync"
 #: the wrappers whose bf16 engine launches the kernels of gram_pk_bf16.cu,
 #: counted apart (the wrapper's launches_bf16) as the record name + "_bf16"
 BF16_FORMS = ("gram_pk_tri", "gram_pk_rows", "cross_u32_pk")
@@ -2061,6 +2120,18 @@ def run(workdir: str) -> list:
     say("[2 build] tensor-core blocks (int8: gram_pk.cuh, gram_u8.cuh; "
         "bf16: gram_bf16.cuh): "
         + "; ".join(f"{rec} {_fmt(r)}" for rec, r in mma_res.items()))
+    sass = _cuda.sass_opcodes([MMA_KERNELS[r] for r in MMA_KERNELS])
+    for rec in MMA_KERNELS:
+        ops = sass.get(MMA_KERNELS[rec], set())
+        mma_res[rec]["design"] = _design(rec)
+        mma_res[rec]["sass_mma"] = sorted({op.split(".")[0] for op in ops}
+                                          & {"HGMMA", "HMMA", "IMMA", "LDSM"})
+    bad = {rec: mma_res[rec]["sass_mma"] for rec in WGMMA_KERNELS
+           if mma_res[rec]["sass_mma"] != ["HGMMA"]}
+    _check(not bad, f"packed_block's kernels must run HGMMA alone: {bad}")
+    say("[2 build] SASS (cuobjdump -sass): " + "; ".join(
+        f"{rec} {r['design']} {'+'.join(r['sass_mma']) or 'no product'}"
+        for rec, r in mma_res.items()))
 
     t = time.perf_counter()
     db_path, db, t_corpus, t_build, scale_list = _corpus(
@@ -2318,6 +2389,12 @@ def run(workdir: str) -> list:
     for name, cases in b16.items():
         for c in cases:
             say(f"[24a kernel] {name} == plain: {_fmt(c)}")
+    c = b16["gram_pk_rows_bf16"][0]
+    say(f"[24a yardstick] cuBLAS bf16 torch.mm(out_dtype=torch.float32) of "
+        f"the expanded stripe ({c['R']} x {c['rows']} by {c['rows']} x "
+        f"{c['S_pad']}, weights folded in; no truncation a K block, no "
+        f"unpack: not the function) {c['cublas_bf16_ms']:.4f} ms against "
+        f"the wgmma stripe's {c['ms']:.4f} ms")
     t = time.perf_counter()
     b16_runs = bf16_phases(
         torch, cli, gram, device_a2a, fused, workdir, say, db=db,
@@ -2354,7 +2431,7 @@ def run(workdir: str) -> list:
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": c.get("library_ms"),
                 **{k: c[k] for k in ("device_ms", "graph_ms", "host_ms",
-                                     "s8_ms") if k in c}}
+                                     "s8_ms", "cublas_bf16_ms") if k in c}}
 
     dense = runs["streamed", "dense"]["launches"]
     sparse = runs["streamed", "sparse"]["launches"]

@@ -1,8 +1,8 @@
 // One 128 x 128 output block of a bf16 product on Hopper's bf16 tensor
 // cores: the kernel sweep's dotonly and dotonly_T (block, unpacked
-// operands, gram_sweep.cu), and packed_block over bit-packed ones (the end
-// of the file), the sweep's bf16 and bf16_ns and the bf16 engine's packed
-// Gram (gram_pk_bf16.cu):
+// operands, mma.sync, gram_sweep.cu), and packed_block over bit-packed ones
+// (wgmma, the end of the file), the sweep's bf16 and bf16_ns and the bf16
+// engine's packed Gram (gram_pk_bf16.cu):
 //   out[r, c] (+)= sum over the K blocks of kt patterns of
 //                  (uint32) trunc(f32 sum_{p in the block} a(r, p) * b(p, c))
 // trunc toward zero, as tools/kernel_sweep.py body_dotonly and body_bf16
@@ -68,6 +68,7 @@
 
 #include "gram_u8.cuh"
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace gram_bf16 {
 
@@ -309,17 +310,14 @@ struct Sums {
 // The product of one stage of kStage patterns, row slab at sa and column
 // slab at sb (shared addresses): per K step of 16, 2 ldmatrix for the
 // warp's columns, then for each of its 4 row tiles one ldmatrix and 4 mma.
-// `step(ks)` runs at the head of K step ks (packed_block's expansion).
-template <class Rows, class Step>
-__device__ __forceinline__ void stage_mma(uint32_t sa, uint32_t sb, const Rows& rows, Sums& sums,
-                                          const Step& step) {
+template <class Rows>
+__device__ __forceinline__ void stage_mma(uint32_t sa, uint32_t sb, const Rows& rows, Sums& sums) {
   const int q_b = 4 * (threadIdx.x / 32 % 4);  // the warp's first 8-sample column chunk
   // B: matrices (K lo, cols lo), (K hi, cols lo), (K lo, cols hi), (K hi,
   // cols hi): b[0], b[1] of n8 tile 2y, then of 2y + 1
   const PatternFrag bfrag(true);
 #pragma unroll
   for (int ks = 0; ks < kStage / 16; ++ks) {
-    step(ks);
     uint32_t bf[4][2];
 #pragma unroll
     for (int y = 0; y < 2; ++y) {
@@ -339,11 +337,6 @@ __device__ __forceinline__ void stage_mma(uint32_t sa, uint32_t sb, const Rows& 
     }
   }
 }
-
-// block()'s step: nothing between its K steps.
-struct NoStep {
-  __device__ __forceinline__ void operator()(int) const {}
-};
 
 // Called by all kThreads threads of the block, `smem` the kSmemBytes of
 // dynamic shared memory (see the top of the file).
@@ -375,7 +368,7 @@ __device__ __forceinline__ void block(uint8_t* smem, const Rows& rows,
     gram_u8::cp_commit();
 
     const Stage& st = ring[i % kStages];
-    stage_mma(gram_u8::smem_addr(st.a), gram_u8::smem_addr(st.b), rows, sums, NoStep{});
+    stage_mma(gram_u8::smem_addr(st.a), gram_u8::smem_addr(st.b), rows, sums);
     if ((i + 1) % st_kt == 0) sums.flush();
   }
   sums.write(out, ld_out, store);
@@ -401,35 +394,52 @@ __device__ __forceinline__ void block(uint8_t* smem, const Rows& rows,
 // the weights' byte l, and each K block's end adds trunc(part) << 8 l into
 // the uint32 accumulators; the block is written once, after the last
 // limb.  So a limb re-reads the packed slabs from L2, 4.5 KB a stage
-// against the stage's 1,024 mma (2^24 bf16 flop), and the block keeps one
-// set of f32 sums (64 registers a thread): a limb loop inside the stage
-// would need one set a limb, or a K block's f32 sums flushed every stage,
-// with n_limbs expansions of the row slab a stage either way.
+// against the stage's 16 wgmma (2^24 bf16 flop), and the block keeps one
+// set of f32 sums (64 registers a thread).
 //
-// Stage.  A stage is 16 byte rows (128 patterns) of each operand, 2 KB,
-// and for bf16 its 128 weights, 512 bytes (16 consecutive words for each
-// bit b at k kt + b kt/8 + the stage's first byte row in the K block).
-// Threads copy them with one 16-byte cp.async each (and 32 threads one
-// more for the weights) into a ring of kPkRing packed stages, kPkRing - 1
-// stages ahead.  Each stage is expanded once a block into the bf16 slabs
-// that block() reads (PatternSlab's layout: stage row k = 16 b + r holds
-// bit b of byte row r, 256 bytes, chunk c at c ^ (k & 7)), in two
-// expanded stages: stage i + 1's expansion runs while stage i's mma do,
-// with one barrier a stage.  Thread (r, c) = (tid / 16, tid % 16) expands
-// 8 samples of byte row r of both operands, bit plane b at K step b: per
-// word of two samples a prmt spreads their bits to bits 0 and 16, and one
-// multiply by the 16-bit bf16 pattern of the weight (bf16(w & 0xFF) is
-// exact; 0x3F80 is 1.0) gives both bf16 values with no carry.  16 threads
-// of one byte row write its 256-byte slab rows' 16 chunks, so a quarter
-// warp's stores fall on 8 distinct chunks of a 128-byte line.
+// Staging (packed_stages, which the sweep's nodot runs too).  A stage is
+// 16 byte rows (128 patterns) of each operand, 2 KB, and for bf16 its 128
+// weights, 512 bytes (16 consecutive words for each bit b at k kt + b kt/8
+// + the stage's first byte row in the K block).  Threads copy them with
+// one 16-byte cp.async each (and 32 threads one more for the weights)
+// into a ring of kPkRing packed stages, kPkRing - 1 stages ahead.  Each
+// stage is expanded once a block into bf16 operands in wgmma's canonical
+// MN-major layout with the 128-byte swizzle (ExStage, wgmma_bf16.cuh):
+// stage row k = 16 b + r holds bit b of byte row r, samples 0-63 in the
+// first 16 KB half (kStage rows of 128 bytes) and 64-127 in the second,
+// chunk c of a row at c ^ (k & 7).  Two expanded stages: stage i + 1's
+// expansion runs while stage i's product does, with one barrier a stage.
+// Thread (r, c) = (tid / 16, tid % 16) expands 8 samples of byte row r of
+// both operands, bit plane b to row 16 b + r: per word of two samples a
+// prmt spreads their bits to bits 0 and 16, and one multiply by the
+// 16-bit bf16 pattern of the weight (bf16(w & 0xFF) is exact; 0x3F80 is
+// 1.0) gives both bf16 values with no carry.  A quarter warp's 16-byte
+// stores fall on the 8 distinct chunks of one 128-byte row.  The stores
+// are generic and wgmma reads through the async proxy: each thread fences
+// the proxies (fence.proxy.async) before the barrier that publishes them.
 //
-// What bounds it.  The product is block()'s, fed from shared memory; a
-// stage adds 64 KB of expanded stores (what block()'s cp.async ring writes
-// too) and ~30 integer instructions a thread and K step to its 192 KB of
-// ldmatrix reads and 1,024 mma, and reads 16x fewer bytes from L2 (4.5 KB
-// a stage for 64 KB of slabs).
-constexpr int kPkRows = kStage / 8;  // packed byte rows a stage
-constexpr int kPkRing = 4;           // packed stages in the ring
+// Product (Product).  Warpgroup g (threads 128 g ..) owns output rows
+// 64 g .. 64 g + 63: a stage is 8 wgmma m64n128k16, A the row operand's
+// half g, B the whole column operand (its halves LBO = 16 KB apart), one
+// commit, then the next stage's expansion while they run, then
+// wait_group 0 before the barrier that hands the expanded stage back.  A
+// third expanded stage (wait_group 1, the products running on across the
+// barrier) fits in shared memory but was no faster, and neither was a
+// deeper packed ring: the expansion, not the barrier, is what the stage
+// waits on (PERF.md).  A K block's first wgmma has scale-d 0 (no zeroing
+// pass); after its last stage's wait the f32 sums are truncated into the
+// uint32 ones, by an add of 2^23 where 255 kt < 2^23 (cvt.rzi, on the
+// conversion pipe, took 10% more time at the sweep's defaults).
+//
+// What bounds it.  bf16 multiply-adds on the tensor cores, fed from shared
+// memory: a stage's 16 wgmma (1,024 clocks of the SM's tensor cores at the
+// dense peak) read 96 KB (each warpgroup its 16 KB of A and all 32 KB of
+// B), and the expansion stores 64 KB, ≈ 160 B a clock against the 128
+// that shared memory delivers; the L2 reads are 4.5 KB a stage.
+constexpr int kPkRows = kStage / 8;     // packed byte rows a stage
+constexpr int kPkRing = 4;              // packed stages in the ring
+constexpr int kExHalf = kStage * 128;   // bytes of 64 samples of a stage
+constexpr int kExStep = 16 * 128;       // bytes of a K step's 16 rows
 constexpr uint32_t kBf16One = 0x3F80u;
 
 struct PackedStage {
@@ -438,17 +448,32 @@ struct PackedStage {
   uint32_t w[kStage];          // weight of stage row 16 b + r
 };
 
-struct PackedSmem {
-  Stage ex[2];                   // expanded stages, 2 x 64 KB
-  PackedStage ring[kPkRing];     // packed stages, 4 x 4.5 KB
+// An expanded stage: each operand kStage rows of kBlock bf16, two halves
+// of 64 samples, 128-byte swizzle (above); 1,024-byte aligned for wgmma.
+struct alignas(1024) ExStage {
+  uint8_t a[kSlab];  // row operand
+  uint8_t b[kSlab];  // column operand
 };
-// 149,504 bytes of the SM's 227 KB
-constexpr int kPkSmemBytes = static_cast<int>(sizeof(PackedSmem));
+
+struct PackedSmem {
+  ExStage ex[2];              // expanded stages, 2 x 64 KB
+  PackedStage ring[kPkRing];  // packed stages, 4 x 4.5 KB
+};
+// 149,504 bytes, and up to 1,024 to align them: 150,528 of the SM's 227 KB
+constexpr int kPkSmemBytes = static_cast<int>(sizeof(PackedSmem)) + 1024;
 static_assert(kThreads == 2 * kPkRows * kBlock / 16 && kThreads == kPkRows * 16,
               "a 16-byte copy of a packed stage and 8 samples of a byte row a thread");
+static_assert(kStage == 8 * 16 && kBlock == 2 * 64,
+              "8 K steps a stage; two 64-row warpgroups, two 64-sample halves");
+
+// The byte of chunk c (samples 8c .. 8c + 7) of stage row k in an
+// expanded operand.
+__device__ __forceinline__ int ex_offset(int k, int c) {
+  return (c / 8) * kExHalf + 128 * k + 16 * ((c & 7) ^ (k & 7));
+}
 
 // Bit plane `bit` of the 8 samples of `x` (one byte each) as 8 bf16 values
-// wv or 0, stage row 16 bit + r, chunk c of `slab` (at c ^ (r & 7)).
+// wv or 0, stage row 16 bit + r, chunk c of `slab`.
 __device__ __forceinline__ void expand8(uint8_t* slab, int r, int c, int bit, uint2 x,
                                         uint32_t wv) {
   const uint32_t lo = (x.x >> bit) & 0x01010101u;
@@ -456,7 +481,7 @@ __device__ __forceinline__ void expand8(uint8_t* slab, int r, int c, int bit, ui
   // bytes (0, 1) and (2, 3) to bits 0 and 16: samples 2m, 2m + 1 of word m
   const uint4 v = make_uint4(__byte_perm(lo, 0u, 0x4140) * wv, __byte_perm(lo, 0u, 0x4342) * wv,
                              __byte_perm(hi, 0u, 0x4140) * wv, __byte_perm(hi, 0u, 0x4342) * wv);
-  *reinterpret_cast<uint4*>(slab + 2 * kBlock * (16 * bit + r) + 16 * (c ^ (r & 7))) = v;
+  *reinterpret_cast<uint4*>(slab + ex_offset(16 * bit + r, c)) = v;
 }
 
 // The bf16 bit pattern of the integer w & 0xFF (exact: 8 significant bits);
@@ -466,7 +491,7 @@ __device__ __forceinline__ uint32_t bf16_byte(uint32_t w) {
 }
 
 // A thread's share of expanding a packed stage: byte row r, samples 8c ..
-// 8c + 7, of both operands, with weight limb `shift` / 8.
+// 8c + 7, of both operands, all 8 bit planes, with weight limb `shift` / 8.
 template <bool kWeighted>
 struct Expand {
   int r, c, shift;
@@ -474,44 +499,126 @@ struct Expand {
   __device__ __forceinline__ explicit Expand(int shift)
       : r(threadIdx.x / 16), c(threadIdx.x % 16), shift(shift) {}
 
-  __device__ __forceinline__ uint2 bytes(const uint8_t (&rows)[kPkRows][kBlock]) const {
-    return *reinterpret_cast<const uint2*>(&rows[r][8 * c]);
-  }
-
-  // bit plane `bit` of both operands' bytes xa, xb of stage ps into ex
-  __device__ __forceinline__ void operator()(const PackedStage& ps, Stage& ex, int bit, uint2 xa,
-                                             uint2 xb) const {
-    expand8(ex.a, r, c, bit, xa, kWeighted ? bf16_byte(ps.w[16 * bit + r] >> shift) : kBf16One);
-    expand8(ex.b, r, c, bit, xb, kBf16One);
+  __device__ __forceinline__ void operator()(const PackedStage& ps, ExStage& ex) const {
+    const uint2 xa = *reinterpret_cast<const uint2*>(&ps.a[r][8 * c]);
+    const uint2 xb = *reinterpret_cast<const uint2*>(&ps.b[r][8 * c]);
+#pragma unroll
+    for (int bit = 0; bit < 8; ++bit) {
+      expand8(ex.a, r, c, bit, xa,
+              kWeighted ? bf16_byte(ps.w[16 * bit + r] >> shift) : kBf16One);
+      expand8(ex.b, r, c, bit, xb, kBf16One);
+    }
   }
 };
 
-// stage_mma's step in packed_block: bit plane ks of the next stage, if any.
-template <bool kWeighted>
-struct ExpandNext {
-  const Expand<kWeighted>& expand;
-  const PackedStage& ps;
-  Stage& ex;
-  uint2 xa, xb;
-  bool next;
+// The accumulators of a thread in wgmma's layout (wgmma_bf16.cuh): the K
+// block's f32 sums and the run's uint32 ones, 64 each; warpgroup g holds
+// rows 64 g ...
+struct WgSums {
+  float part[64];
+  uint32_t acc[64];
 
-  __device__ __forceinline__ void operator()(int ks) const {
-    if (next) expand(ps, ex, ks, xa, xb);
+  __device__ __forceinline__ WgSums() {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      part[i] = 0.0f;
+      acc[i] = 0u;
+    }
+  }
+
+  // the block row of acc[4j + 2h + e]
+  static __device__ __forceinline__ int row(int h) {
+    return 64 * (threadIdx.x / 128) + 16 * (threadIdx.x / 32 % 4) + threadIdx.x % 32 / 4 + 8 * h;
+  }
+
+  // the block column of acc[4j + 2h]
+  static __device__ __forceinline__ int col(int j) { return 8 * j + 2 * (threadIdx.x % 4); }
+
+  // the K block's end: its f32 sums join the uint32 ones, truncated and
+  // shifted left by `shift` (8 l for weight limb l); the next K block's
+  // first wgmma overwrites part.  A sum is a non-negative integer; below
+  // 2^23 (`small`) it is the bits of sum + 2^23 less those of 2^23, an add
+  // a value on the FMA pipe where cvt.rzi takes the 4x slower conversion
+  // pipe
+  __device__ __forceinline__ void flush(int shift, bool small) {
+    if (small) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        acc[i] += (__float_as_uint(__fadd_rn(part[i], 8388608.0f)) - 0x4B000000u) << shift;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        acc[i] += static_cast<uint32_t>(__float2int_rz(part[i])) << shift;
+    }
+  }
+
+  // out (+)= the uint32 sums
+  __device__ __forceinline__ void write(uint32_t* __restrict__ out, int64_t ld_out,
+                                        bool store) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        uint2* dst = reinterpret_cast<uint2*>(out + row(h) * ld_out + col(j));
+        uint2 v = make_uint2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        if (!store) {
+          const uint2 o = *dst;
+          v = make_uint2(v.x + o.x, v.y + o.y);
+        }
+        *dst = v;
+      }
+  }
+};
+
+// packed_block's body: the stage's product on wgmma into sums.
+struct Product {
+  WgSums sums;
+  uint32_t a_half;  // the warpgroup's half of the row operand, in bytes
+  bool small;       // every K block's sum below 2^23: 255 kt < 2^23
+
+  __device__ __forceinline__ explicit Product(int st_kt)
+      : a_half(kExHalf * (threadIdx.x / 128)), small(255 * kStage * st_kt < (1 << 23)) {}
+
+  // starts the product of `ex`, a K block's first stage if kb_stage is 0
+  __device__ __forceinline__ void start(const ExStage& ex, int kb_stage) {
+    const uint64_t da = wgmma_bf16::desc_sw128(gram_u8::smem_addr(ex.a) + a_half, kExHalf, 1024);
+    const uint64_t db = wgmma_bf16::desc_sw128(gram_u8::smem_addr(ex.b), kExHalf, 1024);
+    wgmma_bf16::fence_operands(sums.part);
+    wgmma_bf16::fence();
+#pragma unroll
+    for (int ks = 0; ks < kStage / 16; ++ks)  // the address field counts 16-byte units
+      wgmma_bf16::m64n128k16(sums.part, da + ks * (kExStep >> 4), db + ks * (kExStep >> 4),
+                             ks > 0 || kb_stage > 0);
+    wgmma_bf16::commit();
+  }
+
+  // after the next stage's expansion: this stage's products done before
+  // the barrier that hands their expanded stage to the expansion after
+  // next, and at a K block's end the flush
+  __device__ __forceinline__ void retire(bool kb_end, int shift) {
+    wgmma_bf16::wait<0>();
+    if (kb_end) {
+      wgmma_bf16::fence_operands(sums.part);
+      sums.flush(shift, small);
+    }
   }
 };
 
 // Called by all kThreads threads of the block, `smem` the kPkSmemBytes of
 // dynamic shared memory; the run of n_st stages from pattern p0, whole K
-// blocks of st_kt stages (p0 a multiple of 128 st_kt), for weight limbs 0 ..
-// n_limbs - 1 (1 for bf16_ns); `store` as block().
-template <bool kWeighted>
-__device__ __forceinline__ void packed_block(uint8_t* smem, const uint8_t* __restrict__ a,
-                                             int64_t ld_a, const uint8_t* __restrict__ b,
-                                             int64_t ld_b, const uint32_t* __restrict__ w,
-                                             int64_t p0, int n_st, int st_kt, int n_limbs,
-                                             uint32_t* __restrict__ out, int64_t ld_out,
-                                             bool store) {
-  PackedSmem& sm = *reinterpret_cast<PackedSmem*>(smem);
+// blocks of st_kt stages (p0 a multiple of 128 st_kt), for weight limbs 0
+// .. n_limbs - 1.  Stage i, stage j of its K block, goes to
+// body.start(ex, j); then stage i + 1 is expanded, and
+// body.retire(j == st_kt - 1, 8 l) returns with the product of stage i
+// done.
+template <bool kWeighted, class Body>
+__device__ __forceinline__ void packed_stages(uint8_t* smem, const uint8_t* __restrict__ a,
+                                              int64_t ld_a, const uint8_t* __restrict__ b,
+                                              int64_t ld_b, const uint32_t* __restrict__ w,
+                                              int64_t p0, int n_st, int st_kt, int n_limbs,
+                                              Body& body) {
+  PackedSmem& sm = *reinterpret_cast<PackedSmem*>(
+      smem + ((1024u - (gram_u8::smem_addr(smem) & 1023u)) & 1023u));
   const int tid = threadIdx.x;
   // copy: threads 0-127 the row operand's 16 x 8 chunks, 128-255 the
   // column operand's; threads 0-31 also 4 weights of bit tid / 4
@@ -524,15 +631,15 @@ __device__ __forceinline__ void packed_block(uint8_t* smem, const uint8_t* __res
     const int64_t row = p0 / 8 + static_cast<int64_t>(kPkRows) * i;
     gram_u8::cp16((tid < kBlock ? ps.a[cr] : ps.b[cr]) + 16 * cc, src + row * ld);
     if (kWeighted && tid < kStage / 4) {
-      // the stage's K block starts at pattern 8 (row - row % kb)
+      // stage i is stage j of its K block, which starts at pattern
+      // p0 + 128 (i - j)
+      const int j = i % st_kt;
       const int bit = tid / 4;
-      gram_u8::cp16(&ps.w[4 * tid],
-                    w + 8 * (row - row % kb) + bit * kb + row % kb + 4 * (tid % 4));
+      gram_u8::cp16(&ps.w[4 * tid], w + p0 + static_cast<int64_t>(kStage) * (i - j) + bit * kb +
+                                        kPkRows * j + 4 * (tid % 4));
     }
   };
 
-  const PatternRowFrag rows;
-  Sums sums;
   // The limbs are the outer loop: each runs the whole staging pipeline
   // again.  Limb l's ring and expanded stages are first written after
   // limb l - 1's last barrier, which every reader of them has passed.
@@ -546,34 +653,41 @@ __device__ __forceinline__ void packed_block(uint8_t* smem, const uint8_t* __res
     const Expand<kWeighted> expand(8 * l);
     gram_u8::cp_wait<kPkRing - 1>();  // stage 0 has landed
     __syncthreads();
-    {
-      const uint2 xa = expand.bytes(sm.ring[0].a);
-      const uint2 xb = expand.bytes(sm.ring[0].b);
-#pragma unroll
-      for (int bit = 0; bit < 8; ++bit) expand(sm.ring[0], sm.ex[0], bit, xa, xb);
-    }
+    expand(sm.ring[0], sm.ex[0]);
 
+    int j = 0;  // stage i's place in its K block
     for (int i = 0; i < n_st; ++i) {
       gram_u8::cp_wait<kPkRing - 2>();  // this thread's copies of stage i + 1 have landed
-      // everyone's have; stage i's expansion is written; stage i - 1's mma
-      // (the readers of ex[(i + 1) % 2]) and stage i's expansion (the last
-      // reader of ring[i % kPkRing]) are done
+      wgmma_bf16::fence_proxy_async();  // its expansion of stage i is visible to wgmma
+      // everyone's have; stage i's expansion is written; stage i - 1's
+      // product (the reader of ex[(i + 1) % 2]) and stage i's expansion
+      // (the last reader of ring[i % kPkRing]) are done
       __syncthreads();
       const int nx = i + kPkRing;
       if (nx < n_st) load(sm.ring[nx % kPkRing], nx);
       gram_u8::cp_commit();
 
-      const PackedStage& ps = sm.ring[(i + 1) % kPkRing];
-      const bool next = i + 1 < n_st;
-      const ExpandNext<kWeighted> step{expand, ps, sm.ex[(i + 1) % 2],
-                                       next ? expand.bytes(ps.a) : make_uint2(0u, 0u),
-                                       next ? expand.bytes(ps.b) : make_uint2(0u, 0u), next};
-      const Stage& st = sm.ex[i % 2];
-      stage_mma(gram_u8::smem_addr(st.a), gram_u8::smem_addr(st.b), rows, sums, step);
-      if ((i + 1) % st_kt == 0) sums.flush(8 * l);
+      body.start(sm.ex[i % 2], j);
+      if (i + 1 < n_st) expand(sm.ring[(i + 1) % kPkRing], sm.ex[(i + 1) % 2]);
+      const bool kb_end = ++j == st_kt;
+      body.retire(kb_end, 8 * l);
+      if (kb_end) j = 0;
     }
   }
-  sums.write(out, ld_out, store);
+}
+
+// The packed Gram of the run (packed_stages' arguments) on wgmma; `store`
+// as block().
+template <bool kWeighted>
+__device__ __forceinline__ void packed_block(uint8_t* smem, const uint8_t* __restrict__ a,
+                                             int64_t ld_a, const uint8_t* __restrict__ b,
+                                             int64_t ld_b, const uint32_t* __restrict__ w,
+                                             int64_t p0, int n_st, int st_kt, int n_limbs,
+                                             uint32_t* __restrict__ out, int64_t ld_out,
+                                             bool store) {
+  Product prod(st_kt);
+  packed_stages<kWeighted>(smem, a, ld_a, b, ld_b, w, p0, n_st, st_kt, n_limbs, prod);
+  prod.sums.write(out, ld_out, store);
 }
 
 }  // namespace gram_bf16

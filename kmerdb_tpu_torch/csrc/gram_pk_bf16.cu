@@ -8,10 +8,11 @@
 // sites, gram_u32_pk_tri, gram_u32_pk_rows and cross_u32_pk: per 8-bit
 // limb of the weights, an f32 sum for each K block of kt patterns,
 // truncated and shifted << 8 l into uint32 C.  The block body, its
-// operands and what bounds it: gram_bf16.cuh packed_block.  The grids are
-// those of the int8 engine's kernels (gram_pk_tri.cu, gram_pk_rows.cu,
-// cross_pk.cu), one block of 256 threads for each 128 x 128 output block,
-// with 149,504 bytes of dynamic shared memory and one block an SM; the
+// operands and what bounds it: gram_bf16.cuh packed_block (two warpgroups
+// of wgmma m64n128k16).  The grids are those of the int8 engine's kernels
+// (gram_pk_tri.cu, gram_pk_rows.cu, cross_pk.cu), one block of 256 threads
+// for each 128 x 128 output block, with 150,528 bytes of dynamic shared
+// memory and one block an SM; the
 // K blocks are a loop inside the block (no split K: the triangle at 4,096
 // samples is 528 blocks, four full waves of the card's 132 SMs).
 //

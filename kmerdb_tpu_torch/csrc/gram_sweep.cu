@@ -7,8 +7,8 @@
 // the same grid as gram_pk_tri.cu: one block of 256 threads per 128 x 128
 // output block whose coarse tile (edge `tile`) lies on or below the
 // diagonal, in the tri_coords order; the TPU's K grid axis (P / kt blocks)
-// is a loop inside the block (bf16, bf16_ns, dotonly and dotonly_t: split
-// over runs of whole K blocks, below).  Blocks above the coarse diagonal get
+// is a loop inside the block (bf16, bf16_ns, nodot, dotonly and dotonly_t:
+// split over runs of whole K blocks, below).  Blocks above the coarse diagonal get
 // no thread block, so C keeps its contents there, as the aliased TPU output
 // does.  c
 // is uint32[S, S] (int32 storage), updated in place; w uint32[P].
@@ -20,12 +20,13 @@
 //               bf16 on chip, each product summed in f32 over a K block,
 //               the sum truncated into C at the end of the block (below
 //               kt * 255 < 2^24: exact): gram_bf16.cuh's packed_block (bf16
-//               tensor cores, mma.sync).
+//               tensor cores, wgmma).
 //   bf16_ns     the same without the weights.
 //   nodot       the unpack alone: per K block, C_tile[x, y] += U_i[x, y] +
 //               U_j[x, y] for x, y < tile, U the (kt, tile) block unpacked
 //               b-major (row b * kt/8 + r is bit b of byte row r) from the
 //               tile's columns of Bi and Bj.  Needs kt >= tile.
+//               packed_block's staging with no product (NodotRows).
 //   dotonly     C += Bi^T Bj on unpacked bf16[P, S] operands, f32 per K
 //               block, truncated into C as in bf16: gram_bf16.cuh's block
 //               (bf16 tensor cores, mma.sync), its PatternRows operand.
@@ -37,16 +38,17 @@
 //
 // What bounds them.  Products: the int8 and dotonly_s8 bodies run on the
 // int8 tensor cores (gram_pk.cuh, gram_u8.cuh), bf16, bf16_ns, dotonly and
-// dotonly_t on the bf16 ones (gram_bf16.cuh), all 8 warps of 64 x 32
-// outputs, their bounds there; bf16 and bf16_ns expand their packed
-// operands into the same bf16 slabs that dotonly's cp.async ring holds, so
-// the gap between them is the cost of the packed staging.  nodot moves
-// bytes and unpacks them with plain loads and stores (each thread owns an
-// 8 x 8 block of outputs); its only arithmetic is the add.  The variants
-// exist to measure these parts against each other on the production
-// block's grid; nodot on packed_block's staging is later work.
+// dotonly_t on the bf16 ones (gram_bf16.cuh), their bounds there.  nodot
+// runs bf16's staging unchanged (the packed cp.async ring, the expansion
+// of all 8 bit planes of both operands into the wgmma layout, the
+// barriers, the split grid) and in place of the wgmma adds the stage rows
+// that are U rows into its accumulators: its time is the staging's, and
+// bf16's less nodot's is the product's.  Its byte bound counts each
+// operand once; a block reads its two 128-wide column slabs from L2 once,
+// which is the staging it measures.  The variants exist to measure these
+// parts against each other on the production block's grid.
 //
-// Split K (bf16, bf16_ns, dotonly, dotonly_t).  The triangle's 136 output
+// Split K (bf16, bf16_ns, nodot, dotonly, dotonly_t).  The triangle's 136 output
 // blocks at the tool's S of 2,048 would leave the card's 132 SMs, one
 // block each, a second wave of 4; so the grid is n_blocks x k_splits
 // (ops/sweep.py dot_splits picks k_splits), split z taking a run of whole
@@ -58,7 +60,6 @@
 // commutative: C is bit-identical at any k_splits.
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "gram_bf16.cuh"
@@ -69,9 +70,6 @@
 namespace {
 
 constexpr int kBlock = 128;           // output block edge
-constexpr int kThreads = 256;         // nodot: 16 x 16 threads, 8 x 8 outputs each
-constexpr int kStage = 64;            // patterns staged at a time
-constexpr int kStageRows8 = kStage / 8;   // packed rows a stage
 
 // Output block b of the triangle: its row and column in C, and its place
 // (sr, sc) inside its coarse tile.
@@ -90,105 +88,6 @@ __device__ __forceinline__ Coords coords(int b, int sub) {
   k.row0 = static_cast<int64_t>(k.ci * sub + k.sr) * kBlock;
   k.col0 = static_cast<int64_t>(k.cj * sub + k.sc) * kBlock;
   return k;
-}
-
-// Thread (ty, tx) owns rows {ty*4 + k, 64 + ty*4 + k} and columns
-// {tx*4 + k, 64 + tx*4 + k}, k = 0..3, of the output block.
-__device__ __forceinline__ int own(int t, int m) {
-  return m < 4 ? t * 4 + m : 64 + t * 4 + (m - 4);
-}
-
-__device__ __forceinline__ void add_out(uint32_t (&acc)[8][8], uint32_t* __restrict__ out,
-                                        int64_t ld, int ty, int tx) {
-#pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    const int64_t row = own(ty, m);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint4* dst = reinterpret_cast<uint4*>(out + row * ld + h * 64 + tx * 4);
-      uint4 v = *dst;
-      v.x += acc[m][h * 4 + 0];
-      v.y += acc[m][h * 4 + 1];
-      v.z += acc[m][h * 4 + 2];
-      v.w += acc[m][h * 4 + 3];
-      *dst = v;
-    }
-  }
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[8], int base) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  v[base + 0] = lo.x;
-  v[base + 1] = lo.y;
-  v[base + 2] = hi.x;
-  v[base + 3] = hi.y;
-}
-
-struct SmemNodot {
-  __align__(16) __nv_bfloat16 a[kStage][kBlock];  // row operand, staged patterns
-  __align__(16) __nv_bfloat16 b[kStage][kBlock];  // column operand
-};
-
-// nodot.  Stage patterns: the 64 patterns (bit b, byte row r0 + r), r < 8,
-// held at a[b * 8 + r].
-__global__ void __launch_bounds__(kThreads)
-sweep_nodot_kernel(const uint8_t* __restrict__ bi, const uint8_t* __restrict__ bj,
-                   uint32_t* __restrict__ c, int64_t p, int64_t s, int kt, int sub) {
-  __shared__ SmemNodot sm;
-  const Coords k = coords(blockIdx.x, sub);
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int kb = kt / 8;
-  // nodot adds U[x, y] of the tile's columns y: both operands are read at
-  // the output block's columns inside their coarse tiles
-  const int64_t a_col = (static_cast<int64_t>(k.ci) * sub + k.sc) * kBlock;
-  const int64_t b_col = k.col0;
-
-  uint32_t acc[8][8];
-#pragma unroll
-  for (int m = 0; m < 8; ++m)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) acc[m][n] = 0u;
-
-  for (int64_t kblk = 0; kblk < p; kblk += kt) {
-    for (int st = 0; st < kb; st += kStageRows8) {
-      __syncthreads();  // the previous stage's readers are done
-      const int64_t r_base = kblk / 8 + st;  // first byte row of the stage
-      for (int it = tid; it < kStageRows8 * kBlock; it += kThreads) {
-        const int r = it / kBlock;
-        const int col = it % kBlock;
-        const uint32_t xa = bi[(r_base + r) * s + a_col + col];
-        const uint32_t xb = bj[(r_base + r) * s + b_col + col];
-#pragma unroll
-        for (int b = 0; b < 8; ++b) {
-          sm.a[b * kStageRows8 + r][col] = __float2bfloat16(((xa >> b) & 1u) ? 1.0f : 0.0f);
-          sm.b[b * kStageRows8 + r][col] = __float2bfloat16(((xb >> b) & 1u) ? 1.0f : 0.0f);
-        }
-      }
-      __syncthreads();
-
-      // output row x of the coarse tile is U row x: bit x / kb of byte
-      // row x % kb; add it where that byte row is in this stage
-#pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        const int x = k.sr * kBlock + own(ty, m);
-        const int r = x % kb - st;
-        if (r < 0 || r >= kStageRows8) continue;
-        const int row = (x / kb) * kStageRows8 + r;
-        float av[8], bv[8];
-        load4(&sm.a[row][tx * 4], av, 0);
-        load4(&sm.a[row][64 + tx * 4], av, 4);
-        load4(&sm.b[row][tx * 4], bv, 0);
-        load4(&sm.b[row][64 + tx * 4], bv, 4);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) acc[m][n] += static_cast<uint32_t>(av[n] + bv[n]);
-      }
-    }
-  }
-  add_out(acc, c + k.row0 * s + k.col0, s, ty, tx);
 }
 
 // dotonly_s8: gram_u8.cuh's body in its signed form (mma.sync .s8.s8, no
@@ -279,6 +178,94 @@ sweep_pk_bf16_kernel(const uint32_t* __restrict__ w, const uint8_t* __restrict__
                                      run.n_st, run.st_kt, 1, run.out, run.ld_out, run.split);
 }
 
+// nodot's body on packed_stages, in place of the product: the expanded
+// stage rows that are U rows of the block's output rows, added into the
+// uint32 accumulators.  Output row x of the coarse tile (x0 + the block
+// row) is U row x: bit x / kb of byte row x % kb of the K block, so stage
+// (x % kb) / 16 of each K block holds it, at stage row 16 (x / kb) + x %
+// 16.  The block's rows fall in 8 groups of 16 that share a stage; thread
+// t owns row t / 16 of each group at the 8 columns of chunk t % 16, so in
+// each stage every thread adds as many rows as every other, one 16-byte
+// load an operand a row, and the barrier waits on no warp.  The
+// unweighted expansion writes 1.0 (0x3F80) or 0, so bit 7 of a value is
+// the value: the sums count in units of 0x80, with no conversion.
+struct NodotRows {
+  uint32_t acc[8][8];  // group m's row, the chunk's 8 columns; 0x80 a unit
+  int st[8];           // the stage of a K block that holds group m
+  int off[8];          // the thread's 16 bytes of group m in a stage
+
+  __device__ __forceinline__ NodotRows(int x0, int kb) {
+    const int r = threadIdx.x / 16;
+    const int c = threadIdx.x % 16;
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int x = x0 + 16 * m;  // the group's first U row
+      st[m] = x % kb / gram_bf16::kPkRows;
+      // stage row 16 (x / kb) + r: a multiple of 16 leaves the chunk's key
+      off[m] = gram_bf16::ex_offset(r, c) + 128 * gram_bf16::kPkRows * (x / kb);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[m][e] = 0u;
+    }
+  }
+
+  __device__ __forceinline__ void start(const gram_bf16::ExStage& ex, int j) {
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      if (st[m] != j) continue;
+      const uint4 a = *reinterpret_cast<const uint4*>(ex.a + off[m]);
+      const uint4 b = *reinterpret_cast<const uint4*>(ex.b + off[m]);
+      const uint32_t u[4] = {(a.x & 0x00800080u) + (b.x & 0x00800080u),
+                             (a.y & 0x00800080u) + (b.y & 0x00800080u),
+                             (a.z & 0x00800080u) + (b.z & 0x00800080u),
+                             (a.w & 0x00800080u) + (b.w & 0x00800080u)};
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        acc[m][2 * w] += u[w] & 0xFFFFu;
+        acc[m][2 * w + 1] += u[w] >> 16;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void retire(bool, int) {}
+
+  // out (+)= the sums
+  __device__ __forceinline__ void write(uint32_t* __restrict__ out, int64_t ld_out,
+                                        bool store) const {
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint4* dst = reinterpret_cast<uint4*>(out + (16 * m + threadIdx.x / 16) * ld_out +
+                                              8 * (threadIdx.x % 16) + 4 * h);
+        uint4 v = make_uint4(acc[m][4 * h] >> 7, acc[m][4 * h + 1] >> 7, acc[m][4 * h + 2] >> 7,
+                             acc[m][4 * h + 3] >> 7);
+        if (!store) {
+          const uint4 o = *dst;
+          v = make_uint4(v.x + o.x, v.y + o.y, v.z + o.z, v.w + o.w);
+        }
+        *dst = v;
+      }
+  }
+};
+
+// nodot: packed_block's staging (gram_bf16::packed_stages, unweighted)
+// over a SplitRun, NodotRows in place of the product.  Both operands are
+// read at the output block's columns inside their coarse tiles: Bi at the
+// row tile's, Bj at the column tile's.  w is unused.
+__global__ void __launch_bounds__(gram_bf16::kThreads, gram_bf16::kMinBlocks)
+sweep_nodot_kernel(const uint32_t* __restrict__ w, const uint8_t* __restrict__ bi,
+                   const uint8_t* __restrict__ bj, uint32_t* __restrict__ c,
+                   uint32_t* __restrict__ partials, int64_t p, int64_t s, int kt, int sub,
+                   int n_blocks) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const SplitRun run(c, partials, p, s, kt, sub, n_blocks);
+  const int64_t a_col = (static_cast<int64_t>(run.k.ci) * sub + run.k.sc) * kBlock;
+  NodotRows body(run.k.sr * kBlock, kt / 8);
+  gram_bf16::packed_stages<false>(smem, bi + a_col, s, bj + run.k.col0, s, w, run.p0, run.n_st,
+                                  run.st_kt, 1, body);
+  body.write(run.out, run.ld_out, run.split);
+}
+
 // C's output block blockIdx.x += the k_splits slices' sums of it: rows
 // 8 blockIdx.y .. + 7, one uint4 of four cells a thread.
 __global__ void __launch_bounds__(256)
@@ -352,22 +339,10 @@ extern "C" int kmerdb_sweep_int8(const void* w, const void* bi, const void* bj, 
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int kmerdb_sweep_nodot(const void* w, const void* bi, const void* bj, void* c,
-                                  int64_t p, int64_t s, int kt, int tile, void* stream) {
-  (void)w;  // the unpack alone takes no weights
-  const int64_t blocks = n_blocks(s, tile);
-  if (blocks == 0 || p == 0) return 0;
-  sweep_nodot_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(bi), static_cast<const uint8_t*>(bj), static_cast<uint32_t*>(c),
-      p, s, kt, tile / kBlock);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// bf16, bf16_ns, dotonly and dotonly_t take two more: k_splits, the runs
+// bf16, bf16_ns, nodot, dotonly and dotonly_t take two more: k_splits, the runs
 // of whole K blocks the grid cuts P into (1..P / kt), and `partials`,
 // uint32[k_splits, n_blocks, 128, 128] scratch when k_splits > 1.  bf16's
-// w must be 16-byte aligned.
+// w must be 16-byte aligned; nodot needs kt >= tile.
 extern "C" int kmerdb_sweep_bf16(const void* w, const void* bi, const void* bj, void* c, int64_t p,
                                  int64_t s, int kt, int tile, int k_splits, void* partials,
                                  void* stream) {
@@ -379,6 +354,14 @@ extern "C" int kmerdb_sweep_bf16_ns(const void* w, const void* bi, const void* b
                                     int64_t p, int64_t s, int kt, int tile, int k_splits,
                                     void* partials, void* stream) {
   return launch_split<sweep_pk_bf16_kernel<false>, uint8_t>(
+      gram_bf16::kPkSmemBytes, w, bi, bj, c, p, s, kt, tile, k_splits, partials, stream);
+}
+
+extern "C" int kmerdb_sweep_nodot(const void* w, const void* bi, const void* bj, void* c,
+                                  int64_t p, int64_t s, int kt, int tile, int k_splits,
+                                  void* partials, void* stream) {
+  if (kt < tile) return static_cast<int>(cudaErrorInvalidValue);  // a U row past the K block
+  return launch_split<sweep_nodot_kernel, uint8_t>(
       gram_bf16::kPkSmemBytes, w, bi, bj, c, p, s, kt, tile, k_splits, partials, stream);
 }
 
@@ -397,7 +380,8 @@ extern "C" int kmerdb_sweep_dotonly_t(const void* w, const void* bi, const void*
 }
 
 // The dynamic shared memory of a block, in bytes (ptxas reports static
-// shared memory only): dotonly / dotonly_t, and bf16 / bf16_ns.
+// shared memory only): dotonly / dotonly_t, and bf16 / bf16_ns / nodot and
+// the bf16 engine's forms (gram_pk_bf16.cu).
 extern "C" int kmerdb_gram_bf16_smem_bytes() { return gram_bf16::kSmemBytes; }
 extern "C" int kmerdb_gram_bf16_pk_smem_bytes() { return gram_bf16::kPkSmemBytes; }
 

@@ -17,6 +17,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -28,12 +29,12 @@ SOURCES = ("gram_pk_tri.cu", "gram_pk_rows.cu", "cross_pk.cu", "gram_pk_bf16.cu"
 #: the C entry points of csrc/gram_sweep.cu, one a variant of
 #: ops/sweep.py, all with the same arguments; SWEEP_SPLIT_ENTRIES take two
 #: more, k_splits and the split sums' scratch
-SWEEP_ENTRIES = ("int8", "nodot", "dotonly_s8")
-SWEEP_SPLIT_ENTRIES = ("bf16", "bf16_ns", "dotonly", "dotonly_t")
+SWEEP_ENTRIES = ("int8", "dotonly_s8")
+SWEEP_SPLIT_ENTRIES = ("bf16", "bf16_ns", "nodot", "dotonly", "dotonly_t")
 HEADERS = ("gram_bf16.cuh", "gram_pk.cuh", "gram_u8.cuh", "mma_bf16.cuh",
-           "mma_s8.cuh", "tri.cuh")
-#: sm_90a: the Hopper target (plain sm_90 refuses wgmma, which later
-#: kernels will use); -Xptxas -v logs registers, shared memory and spills
+           "mma_s8.cuh", "tri.cuh", "wgmma_bf16.cuh")
+#: sm_90a: the Hopper target (plain sm_90 refuses wgmma, which the bf16
+#: packed block runs on); -Xptxas -v logs registers, shared memory and spills
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libkmerdb_torch_cuda.so"
@@ -49,6 +50,38 @@ def nvcc() -> str:
             return c
     raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
                        "with the CUDA toolkit (set CUDA_HOME)")
+
+
+def _tool(name: str) -> str:
+    """Path of a CUDA toolkit program, found beside nvcc."""
+    path = os.path.join(os.path.dirname(nvcc()), name)
+    if not os.path.exists(path):
+        raise RuntimeError(f"{name} not found beside nvcc")
+    return path
+
+
+def sass_opcodes(names) -> dict:
+    """{name: the set of SASS instructions, with their modifiers} of each
+    kernel of the built library whose mangled name holds `name`, by
+    ``cuobjdump -sass``: what a kernel really runs (HGMMA for wgmma, HMMA
+    for mma.sync, LDSM for ldmatrix, LDGSTS for cp.async)."""
+    r = subprocess.run([_tool("cuobjdump"), "-sass", str(library_path())],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True, timeout=300, check=True)
+    out, cur = {}, []
+    for ln in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = [n for n in names if n in m[1]]
+            for n in cur:
+                out.setdefault(n, set())
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][\w.]*)",
+                       ln)
+        if op:
+            for n in cur:
+                out[n].add(op[1])
+    return out
 
 
 def library_path() -> pathlib.Path:

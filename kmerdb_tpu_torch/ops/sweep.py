@@ -15,7 +15,9 @@ the P patterns in K blocks of kt:
   on the bf16 tensor cores, over a grid split like dotonly's);
 * ``nodot``: the unpack alone, C_tile[x, y] += U_i[x, y] + U_j[x, y] for
   x, y < tile in each K block, U the block of the tile's columns unpacked
-  b-major (row b * kt/8 + r is bit b of byte row r); needs kt >= tile;
+  b-major (row b * kt/8 + r is bit b of byte row r); needs kt >= tile (on
+  the card: bf16's packed staging with no product, over the same split
+  grid);
 * ``dotonly``, ``dotonly_T``, ``dotonly_s8``: C += Bi^T Bj on unpacked
   bf16[P, S] operands (``dotonly_T``: Bi bf16[S, P]), f32 per K block
   truncated toward zero into C (on the bf16 tensor cores, over a grid split
@@ -45,9 +47,10 @@ VARIANTS = ("bf16", "bf16_ns", "int8", "nodot", "dotonly", "dotonly_T",
 PACKED = ("bf16", "bf16_ns", "int8", "nodot")
 #: the variants whose grid is split over runs of whole K blocks; their
 #: wrappers take ``k_splits=`` (default: dot_splits)
-SPLIT = ("bf16", "bf16_ns", "dotonly", "dotonly_T")
-#: the split variants on gram_bf16.cuh's packed block
-PACKED_BF16 = tuple(v for v in SPLIT if v in PACKED)
+SPLIT = ("bf16", "bf16_ns", "nodot", "dotonly", "dotonly_T")
+#: the variants that run gram_bf16.cuh's packed block (its staging and
+#: its product; nodot runs the staging alone)
+PACKED_BF16 = ("bf16", "bf16_ns")
 #: the variants over unpacked bf16 operands, which take any bf16 values
 UNPACKED_BF16 = tuple(v for v in SPLIT if v not in PACKED)
 #: dot_splits takes the fewest splits within this factor of a full card

@@ -1,12 +1,13 @@
 """Rate of the bf16 blocks (csrc/gram_bf16.cuh) on one CUDA card.
 
 Prints ptxas's registers and spills of the kernel sweep's bf16 kernels
-(``dotonly`` and ``dotonly_T`` on unpacked operands, ``bf16`` and
-``bf16_ns`` on packed ones) and of their split sum, then, for each of the
-four at the sweep's defaults (S 2,048, P 2^17 for ``dotonly*`` and 2^20 for
-the packed two, as ``kernel_sweep.main``; ``--P`` sets one P for every
-variant), kt 512, tile 128, the tool's operands, after one call held to its
-plain version exactly:
+(``dotonly`` and ``dotonly_T`` on unpacked operands through block()'s
+mma.sync, ``bf16`` and ``bf16_ns`` on packed ones through packed_block's
+wgmma, ``nodot`` on packed_block's staging alone) and of their split sum,
+then, for each of the five at the sweep's defaults (S 2,048, P 2^17 for
+``dotonly*`` and 2^20 for the packed three, as ``kernel_sweep.main``;
+``--P`` sets one P for every variant), kt 512, tile 128, the tool's
+operands, after one call held to its plain version exactly:
 
 * the time a call (CUDA events over a chain) at k_splits 1, 2, 4, 8, 16
   and 32 and at ``sweep.dot_splits``' choice, each with its share of the
@@ -14,13 +15,18 @@ plain version exactly:
 * at that choice, the profiler's device time of the block kernel and of
   the split sum (``torch.profiler``, summed over the chain);
 * the library call of ``kernel_sweep.library_call`` where the variant has
-  one (cuBLAS's bf16 product with an f32 result, over the full square).
+  one (cuBLAS's bf16 product with an f32 result, over the full square);
+
+and, where ``nodot`` ran beside ``bf16`` or ``bf16_ns``, the staging
+split of packed_block at each k_splits both ran: the staging (``nodot``,
+which also runs adds that ``bf16`` does not), staging and product
+(``bf16``), their difference and ``nodot``'s share of ``bf16``'s time.
 
 One JSON line a case.  Usage, on a machine with a CUDA card (exits 1
 without one):
 
     python -m kmerdb_tpu_torch.tools.gram_bf16_rate [--splits 1,2,4,8,16,32]
-        [--variants bf16,bf16_ns,dotonly,dotonly_T] [--P N]
+        [--variants bf16,bf16_ns,nodot,dotonly,dotonly_T] [--P N]
 """
 
 import argparse
@@ -33,7 +39,7 @@ from ..ops import _cuda, gram, sweep
 from . import gram_u8_rate, kernel_sweep
 
 KERNELS = ("sweep_dot_bf16_kernel", "sweep_pk_bf16_kernel",
-           "dot_split_sum_kernel")
+           "sweep_nodot_kernel", "dot_split_sum_kernel")
 
 
 def _profile_ms(fn, reps: int) -> dict:
@@ -119,12 +125,32 @@ def main(argv=None) -> int:
     _cuda.lib()
     for ln in gram_u8_rate._ptxas(_cuda.build_log(), KERNELS):
         print(ln)
+    ms = {}
     for v in args.variants.split(","):
         P = args.P or (1 << 20 if v in sweep.PACKED else 1 << 17)
         for rec in run(v, args.S, P, args.kt, args.tile,
                        [int(x) for x in args.splits.split(",")], args.reps):
             print(json.dumps(rec), flush=True)
+            if "k_splits" in rec:
+                ms[v, rec["k_splits"]] = (rec["ms"], rec["planned"])
+    for rec in staging_split(ms):
+        print(json.dumps(rec), flush=True)
     return 0
+
+
+def staging_split(ms: dict) -> list:
+    """packed_block's time split at each k_splits where nodot and bf16
+    (bf16_ns) both ran: nodot's time (the staging and its adds), bf16's,
+    and bf16 less nodot; ms maps (variant, k_splits) to (ms, planned)."""
+    out = []
+    for (v, z), (full, planned) in sorted(ms.items()):
+        if v in sweep.PACKED_BF16 and ("nodot", z) in ms:
+            stage = ms["nodot", z][0]
+            out.append({"split": v, "k_splits": z, "planned": planned,
+                        "nodot_ms": stage, f"{v}_ms": full,
+                        "less_nodot_ms": full - stage,
+                        "nodot_share": stage / full})
+    return out
 
 
 if __name__ == "__main__":

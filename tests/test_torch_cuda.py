@@ -7,6 +7,8 @@ has none), so it runs there without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -382,7 +384,9 @@ _BF16_FNS = {"tri": gram.gram_u32_pk_tri, "rows": gram.gram_u32_pk_rows,
 #: tile, rt0): distinct weights of 1, 2 and 4 8-bit limbs (22 and 40 bits
 #: past their limbs: dropped), kt 256, 512 and 1024, coarse tiles of 256,
 #: a stripe other than the first, and rectangles of two pitches (db2db's
-#: 1,024 x 3,072)
+#: 1,024 x 3,072); then the edges of the wgmma block: one stage (128
+#: patterns, n_st 1) and kt 128 (one stage a K block, a flush every stage)
+#: over several K blocks, each form at 1 and 4 limbs
 BF16_CASES = [
     ("tri", 384, 384, 1024, 1, 8, 512, 128, 0),
     ("tri", 768, 768, 2048, 4, 32, 1024, 256, 0),
@@ -391,7 +395,13 @@ BF16_CASES = [
     ("rows", 768, 256, 2048, 4, 32, 1024, 256, 1),
     ("cross", 1024, 3072, 1024, 2, 16, 512, 128, 0),
     ("cross", 384, 128, 2048, 4, 32, 256, 128, 0),
-    ("cross", 128, 640, 1024, 1, 12, 1024, 128, 0)]
+    ("cross", 128, 640, 1024, 1, 12, 1024, 128, 0),
+    ("tri", 256, 256, 128, 1, 8, 128, 128, 0),
+    ("rows", 384, 128, 128, 4, 32, 128, 128, 1),
+    ("cross", 256, 384, 128, 4, 32, 128, 128, 0),
+    ("tri", 512, 512, 1024, 4, 32, 128, 256, 0),
+    ("rows", 512, 256, 640, 1, 8, 128, 128, 1),
+    ("cross", 384, 256, 896, 2, 16, 128, 128, 0)]
 
 
 @pytest.mark.parametrize("form,S1,S2,rows,n_limbs,wbits,kt,tile,rt0",
@@ -454,6 +464,39 @@ def test_bf16_gram_kernels_flush_every_k_block(card, form):
         assert bool((moved[lower] == gain).all()) and not moved[~lower].any()
     else:
         assert bool((moved == gain).all())
+
+
+#: the kernels on gram_bf16.cuh's packed block, which must run wgmma
+WGMMA_KERNELS = ("gram_pk_tri_bf16_kernel", "gram_pk_rows_bf16_kernel",
+                 "cross_pk_bf16_kernel", "sweep_pk_bf16_kernel")
+
+
+def test_bf16_packed_block_runs_on_wgmma(card):
+    """The SASS of the packed block's kernels (cuobjdump -sass of the
+    built library) holds HGMMA and no HMMA or LDSM; nodot's holds its
+    cp.async ring (LDGSTS), no product and no single-byte global load;
+    block() (dotonly) stays on mma.sync; ptxas spills none of them."""
+    _cuda.lib()
+    names = (*WGMMA_KERNELS, "sweep_nodot_kernel", "sweep_dot_bf16_kernel")
+    ops = _cuda.sass_opcodes(names)
+
+    def has(name, *prefixes):
+        return any(op.startswith(prefixes) for op in ops[name])
+    for name in WGMMA_KERNELS:
+        assert has(name, "HGMMA") and not has(name, "HMMA", "LDSM"), name
+    assert has("sweep_nodot_kernel", "LDGSTS")
+    assert not has("sweep_nodot_kernel", "HGMMA", "HMMA")
+    assert not any(op.startswith("LDG") and ".U8" in op
+                   for op in ops["sweep_nodot_kernel"])
+    assert has("sweep_dot_bf16_kernel", "HMMA")
+    spills, cur = {}, None
+    for ln in _cuda.build_log().splitlines():
+        if "Compiling entry function" in ln:
+            cur = next((n for n in names if n in ln), None)
+        elif cur and "spill stores" in ln:
+            spills[cur] = spills.get(cur, 0) + sum(
+                int(x) for x in re.findall(r"(\d+) bytes spill", ln))
+    assert set(spills) == set(names) and not any(spills.values()), spills
 
 
 def test_bf16_gram_refuses_what_it_cannot_hold(card):
@@ -1014,6 +1057,37 @@ def test_sweep_packed_flush_case(card, variant, k_splits):
     assert variant != "bf16" or gain > 1 << 24
     moved = (got.to(torch.int64) - C.to(torch.int64)) & 0xFFFFFFFF
     assert bool((moved[lower] == gain).all()) and not moved[~lower].any()
+
+
+#: (S, P, kt, tile, k_splits): nodot at kt = tile (one stage a K block at
+#: 128, two at 256), kt above tile, several K blocks and one, at one split,
+#: at uneven splits and at the planner's
+NODOT_CASES = [(384, 128, 128, 128, None), (512, 1024, 128, 128, None),
+               (512, 2048, 256, 256, 3), (512, 4096, 512, 256, 1),
+               (384, 2560, 512, 128, None), (640, 3072, 1024, 128, 2)]
+
+
+@pytest.mark.parametrize("S,P,kt,tile,k_splits", NODOT_CASES,
+                         ids=["-".join(map(str, c)) for c in NODOT_CASES])
+def test_sweep_nodot_on_the_packed_staging(card, S, P, kt, tile, k_splits):
+    """nodot on the bf16 block's packed staging (csrc/gram_sweep.cu) ==
+    its plain version: random bytes, Bi != Bj, C seeded non-zero; its
+    k_splits the planner's where none is given."""
+    rng = np.random.default_rng(S + P + kt + tile)
+    Bi, Bj = (torch.from_numpy(rng.integers(0, 256, size=(P // 8, S),
+                                            dtype=np.uint8)).to(card)
+              for _ in range(2))
+    w = torch.zeros(P, dtype=torch.int32, device=card)
+    C = torch.from_numpy(_u32(rng, (S, S)).view(np.int32)).to(card)
+    kern = sweep.KERNELS["nodot"]
+    n = kern.launches
+    want = sweep.plain("nodot", w, Bi, Bj, C.clone(), kt=kt, tile=tile)
+    got = kern(w, Bi, Bj, C.clone(), kt=kt, tile=tile, k_splits=k_splits)
+    torch.cuda.synchronize()
+    assert kern.launches == n + 1
+    assert kern.k_splits == (k_splits or sweep.dot_splits(
+        sweep.n_blocks(S, tile), P // kt, gram._n_sm(card.index)))
+    assert torch.equal(got, want) and not torch.equal(got, C)
 
 
 @pytest.mark.skipif(not native.available, reason="no native host runtime")

@@ -117,6 +117,55 @@ def test_gram_pk_tri_bf16_matches_jax(S, rows, n_limbs, wbits, kt, tile,
     np.testing.assert_array_equal(want[~lower], C0[~lower])
 
 
+#: (form, S or S1, S2 or stripe rows, limbs, weight bits, K blocks): the
+#: bf16 forms at kt 128, one stage of the card's packed block a K block, so
+#: every stage ends with a flush; C seeded at 2^31 and above; one tile of
+#: one K block too
+BF16_KT128_CASES = [("tri", 256, 256, 1, 8, 5), ("tri", 384, 384, 4, 32, 3),
+                    ("tri", 128, 128, 2, 16, 1),
+                    ("rows", 384, 128, 2, 16, 4), ("rows", 512, 256, 4, 30, 2),
+                    ("rows", 256, 128, 1, 8, 1),
+                    ("cross", 128, 384, 1, 8, 5), ("cross", 384, 256, 4, 32, 3),
+                    ("cross", 256, 128, 2, 16, 1)]
+
+
+@pytest.mark.parametrize("form,S1,S2,n_limbs,wbits,k_blocks", BF16_KT128_CASES,
+                         ids=["-".join(map(str, c)) for c in BF16_KT128_CASES])
+def test_bf16_forms_at_kt_128_match_jax(form, S1, S2, n_limbs, wbits,
+                                        k_blocks):
+    """The bf16 engine's triangle, stripe (rt0 1) and rectangle (two row
+    pitches) at kt 128: the port's wrappers on the CPU == kmerdb_tpu's
+    interpreted kernels with engine="bf16"."""
+    kt, tile, rows = 128, 128, 128 * k_blocks
+    rng = np.random.default_rng(S1 + S2 + n_limbs + wbits)
+    U = (rng.random((rows, S1)) < 0.3).astype(np.uint8)
+    V = (rng.random((rows, S2)) < 0.3).astype(np.uint8)
+    Up, Vp = (np.packbits(X, axis=0, bitorder="little") for X in (U, V))
+    w = _bf16_weights(rng, rows, wbits)
+    wpk = pallas_gram.pk_weight_order(w, kt)
+    shape = {"tri": (S1, S1), "rows": (S2, S1), "cross": (S1, S2)}[form]
+    C0 = rng.integers(1 << 31, 1 << 32, size=shape,
+                      dtype=np.uint64).astype(np.uint32)
+    kw = dict(n_limbs=n_limbs, kt=kt, engine="bf16")
+    jargs = (jnp.asarray(Up), jnp.asarray(wpk.reshape(-1, 1)),
+             jnp.asarray(C0))
+    Ut, wt, Ct = gram.from_jax_layout(Up, wpk.reshape(-1, 1), C0, "cpu")
+    if form == "tri":
+        want = pallas_gram.gram_u32_pk_tri(*jargs, tile=tile, **kw)
+        got = gram.gram_u32_pk_tri(Ut, wt, Ct, tile=tile, **kw)
+    elif form == "rows":
+        want = pallas_gram.gram_u32_pk_rows(*jargs, 1, tile=tile, **kw)
+        got = gram.gram_u32_pk_rows(Ut, wt, Ct, 1, tile=tile, **kw)
+    else:
+        want = pallas_gram.cross_u32_pk(
+            jargs[0], jnp.asarray(Vp), *jargs[1:], tile=tile, interpret=True,
+            **kw)
+        got = gram.cross_u32_pk(Ut, torch.from_numpy(Vp), wt, Ct, **kw)
+    assert got is Ct
+    np.testing.assert_array_equal(_u32(Ct), np.asarray(want))
+    assert not np.array_equal(_u32(Ct), C0)
+
+
 def test_gram_pk_tri_wraps_mod_2_32():
     """Counts past 2^32 wrap exactly as uint32 (the reference's
     num_kmers_t): every limb at its largest weight."""

@@ -7,7 +7,8 @@ operands, made with numpy from a seed, at two geometries, with weights of
 128 and 256 and above, Bi != Bj and C seeded non-zero; dotonly and
 dotonly_T also on half-integer operands, whose per-K-block truncation
 shows; bf16 and bf16_ns also at K blocks of 128 (one stage of the packed
-block a K block) and with every byte 0xFF and every weight byte 255.
+block a K block) and with every byte 0xFF and every weight byte 255;
+nodot also at kt = tile and at tile 256.
 Tolerance: exact equality of the uint32 matrices.  Then the tool's
 own functions on a CPU device: ops/device_a2a.kernel_bench's chained C and
 its truncation under KMERDB_A2A_RESIDENT_MB, the records of run_variant
@@ -89,14 +90,19 @@ def _operands(variant, rng, signed=False, halves=False, ones=False):
 
 
 #: every variant at two geometries, dotonly_s8 on signed operands, dotonly
-#: and dotonly_T on half-integer ones at K blocks of 128 and 512, and bf16
-#: and bf16_ns at K blocks of 128 and with every bit and weight byte set
+#: and dotonly_T on half-integer ones at K blocks of 128 and 512, bf16 and
+#: bf16_ns at K blocks of 128 and with every bit and weight byte set, and
+#: nodot at kt = tile (one stage of the packed block a K block at 128), at
+#: tile 256 with kt above it, and at tile 128 with 2 and 8 stages a K block
 VARIANT_CASES = [(v, kt, tile, "") for kt, tile in ((512, 128), (1024, 256))
                  for v in sweep.VARIANTS] + [("dotonly_s8", 512, 128, "signed")] \
     + [(v, kt, 128, "halves") for v in sweep.UNPACKED_BF16
        for kt in (128, 512)] \
     + [(v, 128, 128, "") for v in sweep.PACKED_BF16] \
-    + [(v, 512, 128, "ones") for v in sweep.PACKED_BF16]
+    + [(v, 512, 128, "ones") for v in sweep.PACKED_BF16] \
+    + [("nodot", kt, tile, "") for kt, tile in ((128, 128), (256, 256),
+                                                (512, 256), (256, 128),
+                                                (1024, 128))]
 
 
 @pytest.mark.parametrize(
@@ -222,10 +228,11 @@ def test_k_splits_is_checked_and_leaves_the_sums_alone():
     rng = np.random.default_rng(9)
     C0 = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(S, S),
                                        dtype=np.int64).astype(np.int32))
-    assert set(sweep.SPLIT) == {"bf16", "bf16_ns", "dotonly", "dotonly_T"}
+    assert set(sweep.SPLIT) == {"bf16", "bf16_ns", "nodot", "dotonly",
+                                "dotonly_T"}
     assert sweep.PACKED_BF16 == ("bf16", "bf16_ns")
     assert sweep.UNPACKED_BF16 == ("dotonly", "dotonly_T")
-    for v in ("dotonly", *sweep.PACKED_BF16):
+    for v in ("dotonly", *sweep.PACKED_BF16, "nodot"):
         w, Bi, Bj = kernel_sweep.operands(v, S, P, "cpu", seed=9)
         if v == "dotonly":
             Bi = torch.from_numpy(rng.choice(HALVES, size=(P, S))) \
@@ -243,7 +250,7 @@ def test_k_splits_is_checked_and_leaves_the_sums_alone():
             with pytest.raises(ValueError, match="k_splits"):
                 sweep.KERNELS[v](w, Bi, Bj, C0.clone(), kt=512,
                                  tile=128, k_splits=bad)
-    for v in ("int8", "nodot", "dotonly_s8"):
+    for v in ("int8", "dotonly_s8"):
         w8, B8, _ = kernel_sweep.operands(v, S, P, "cpu")
         with pytest.raises(ValueError, match="k_splits"):
             sweep.KERNELS[v](w8, B8, B8, C0.clone(), kt=512,
@@ -408,6 +415,64 @@ def test_rate_tool_reads_the_block_kernels_from_ptxas():
     assert [ln for ln in got if not ln.startswith(" ")] == [names[0], names[2]]
     assert sum("Used 121 registers" in ln for ln in got) == 1
     assert not any("118" in ln for ln in got)
+
+
+#: (times by (variant, k_splits), the split's records): nodot beside both
+#: packed variants; beside bf16 alone, one split of two; nodot alone;
+#: beside bf16_ns alone
+STAGING_CASES = [
+    ({("bf16", 13): (9.5, True), ("nodot", 13): (7.5, True),
+      ("bf16_ns", 13): (8.5, True), ("bf16", 1): (20.0, False),
+      ("dotonly", 16): (1.8, True)},
+     [{"split": "bf16", "k_splits": 13, "planned": True, "nodot_ms": 7.5,
+       "bf16_ms": 9.5, "less_nodot_ms": 2.0, "nodot_share": 7.5 / 9.5},
+      {"split": "bf16_ns", "k_splits": 13, "planned": True, "nodot_ms": 7.5,
+       "bf16_ns_ms": 8.5, "less_nodot_ms": 1.0, "nodot_share": 7.5 / 8.5}]),
+    ({("bf16", 2): (16.0, False), ("nodot", 2): (12.0, False),
+      ("bf16", 8): (10.0, True), ("nodot", 4): (6.0, False)},
+     [{"split": "bf16", "k_splits": 2, "planned": False, "nodot_ms": 12.0,
+       "bf16_ms": 16.0, "less_nodot_ms": 4.0, "nodot_share": 0.75}]),
+    ({("nodot", 13): (7.5, True)}, []),
+    ({("bf16_ns", 4): (10.0, False), ("nodot", 4): (8.0, False)},
+     [{"split": "bf16_ns", "k_splits": 4, "planned": False, "nodot_ms": 8.0,
+       "bf16_ns_ms": 10.0, "less_nodot_ms": 2.0, "nodot_share": 0.8}]),
+]
+
+
+@pytest.mark.parametrize("ms,want", STAGING_CASES,
+                         ids=["both", "one-split", "nodot-alone",
+                              "bf16_ns-alone"])
+def test_bf16_rate_tool_splits_the_packed_block(ms, want):
+    """gram_bf16_rate's staging split: at each k_splits where nodot ran
+    beside bf16 or bf16_ns, nodot's time, the whole, and their
+    difference; nothing where they ran at different k_splits."""
+    from kmerdb_tpu_torch.tools import gram_bf16_rate
+    assert gram_bf16_rate.staging_split(ms) == want
+
+
+def test_sass_reader_takes_each_kernels_instructions(monkeypatch):
+    """_cuda.sass_opcodes reads cuobjdump -sass: the instructions, with
+    their modifiers and without predicates, of the kernels whose mangled
+    names hold the names asked for."""
+    from kmerdb_tpu_torch.ops import _cuda
+    dump = (
+        "\t\tFunction : _ZN12_GLOBAL__N_123gram_pk_tri_bf16_kernelEPKh\n"
+        "\t.headerflags\t@\"EF_CUDA_SM90\"\n"
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;  /* 0x0 */\n"
+        "        /*0010*/                   HGMMA.64x128x16.F32.BF16 R24, "
+        "gdesc[UR4], RZ, !UPT ;\n"
+        "        /*0020*/              @!P0 BRA 0x50 ;\n"
+        "\t\tFunction : _ZN12_GLOBAL__N_115sweep_s8_kernelEPKa\n"
+        "        /*0000*/              @UP1 LDSM.16.M88.4 R4, [R2] ;\n"
+        "        /*0010*/                   IMMA.16832.S8.S8 R8, R4, R6, R8 ;\n")
+    monkeypatch.setattr(_cuda, "_tool", lambda name: name)
+    monkeypatch.setattr(_cuda.subprocess, "run", lambda *a, **kw:
+                        types.SimpleNamespace(stdout=dump))
+    got = _cuda.sass_opcodes(["gram_pk_tri_bf16_kernel", "sweep_s8_kernel",
+                              "absent_kernel"])
+    assert got == {"gram_pk_tri_bf16_kernel":
+                   {"LDC", "HGMMA.64x128x16.F32.BF16", "BRA"},
+                   "sweep_s8_kernel": {"LDSM.16.M88.4", "IMMA.16832.S8.S8"}}
 
 
 def test_bf16_rate_tool_without_cuda_exits_nonzero(capsys):
