@@ -22,6 +22,13 @@ n_samples compress 2-4x).  The bench hosts sustain only ~30-65 MB/s of
 file writeback, so fewer bytes is directly build/query wall-clock.
 Raw sections ("raw" or no marker) and the earlier .npz container are
 still read transparently.
+
+An encoded section is read through one reused buffer of at most WINDOW
+bytes and each window decoded straight into the section's array, so a
+load never holds a section's whole compressed bytes beside its values.
+A section of more than one window decodes on the host runtime's threads
+(native.get_threads(), the CLI's -t) and counts its windows in the call
+record's counter load.windows; a smaller one decodes on one thread.
 """
 
 import json
@@ -35,6 +42,11 @@ from ..utils import trace
 SAMPLES_ONLY = "samples_only"
 PATTERNS = "patterns"
 EVERYTHING = "everything"
+
+#: bytes of an encoded section read and decoded at a time
+WINDOW = 64 << 20
+#: bytes of the longest varint: ceil(64 / 7)
+_VARINT_MAX = 10
 
 _MAGIC = "kmerdb_tpu-db-v1"
 _FLAT_MAGIC = b"KMDBTPU2"
@@ -77,15 +89,63 @@ def _encode(name: str, arr: np.ndarray):
 
 
 def _decode(blob: np.ndarray, enc: str, dtype: np.dtype, n: int):
-    from ..utils import native
+    """A raw section's values, or an encoded one's by the NumPy decoder
+    (the load without the C++ runtime)."""
     if enc == "raw":
         return blob.view(dtype)[:n]
-    if native.available:
-        if enc == "d64":
-            return native.vb_decode_delta_u64(blob, n).view(dtype)
-        return native.vb_decode_u32(blob, n).view(dtype)
     return _vb_decode_py(blob, n, delta=enc == "d64").astype(
         np.uint64 if enc == "d64" else np.uint32).view(dtype)
+
+
+def _read_varints(f, pos: int, nbytes: int, enc: str, dtype: np.dtype,
+                  n: int, what: str, window: int | None = None,
+                  threads: int | None = None) -> np.ndarray:
+    """The n values of the encoded section ("v32" or "d64") of nbytes
+    bytes at f's offset pos, read `window` bytes (WINDOW by default) at a
+    time (load.read) and each window decoded into the values' array
+    (load.decode); the bytes of a value cut by a window's end lead the
+    next window.  A section of more than one window decodes on `threads`
+    threads (the runtime's count by default) and adds its windows to
+    load.windows; a section of one window, on one thread.  `what` names
+    the section in the IOError raised when the file ends before nbytes or
+    the bytes before n values."""
+    from ..utils import native
+    window = max(WINDOW if window is None else int(window), 2 * _VARINT_MAX)
+    windowed = nbytes > window
+    nt = 1 if not windowed else (
+        native.get_threads() if threads is None else threads)
+    with trace.span("load.decode"):
+        out = native.alloc_array(n, np.uint64 if enc == "d64"
+                                 else np.uint32)
+    with trace.span("load.read"):
+        f.seek(pos)
+        buf = native.alloc_array(min(window, nbytes), np.uint8)
+    view = memoryview(buf)
+    state = np.zeros(1, dtype=np.uint64)
+    done = carry = read = windows = 0
+    while done < n:
+        with trace.span("load.read"):
+            want = min(buf.size - carry, nbytes - read)
+            got = f.readinto(view[carry:carry + want]) if want else 0
+        read += got
+        if got != want:
+            raise IOError(f"Truncated k-mer database {what} has "
+                          f"{read}/{nbytes} bytes")
+        have = carry + got
+        with trace.span("load.decode"):
+            k, used = native.vb_decode_window(buf[:have], out[done:], state,
+                                              nt)
+        if k < 0 or (done + k < n and (read == nbytes
+                                       or have - used >= _VARINT_MAX)):
+            raise IOError(f"Corrupt k-mer database {what}: "
+                          f"{max(k, 0) + done}/{n} values")
+        done += k
+        windows += windowed
+        carry = have - used
+        buf[:carry] = buf[used:have]
+    if windows:
+        trace.add("load.windows", windows)
+    return out.view(dtype)
 
 
 def _vb_decode_py(blob: np.ndarray, n: int, delta: bool) -> np.ndarray:
@@ -155,6 +215,7 @@ def save_db(db: KmerPatternDb, path: str) -> None:
 
 
 def _load_flat(f, path: str, mode: str) -> KmerPatternDb:
+    from ..utils import native
     # corrupt/truncated headers must surface as the IOError contract
     # every caller (and the npz path) observes, not raw ValueError/
     # KeyError/JSONDecodeError
@@ -179,12 +240,14 @@ def _load_flat(f, path: str, mode: str) -> KmerPatternDb:
         dtype = np.dtype(s["dtype"])
         enc = s.get("enc", "raw")
         nbytes = s.get("nbytes", s["n"] * dtype.itemsize)
+        if enc != "raw" and native.available:
+            return _read_varints(f, base + s["offset"], nbytes, enc, dtype,
+                                 s["n"], f"{path}: section {name}")
         with trace.span("load.read"):
             f.seek(base + s["offset"])
             # read into a bulk-provisioned buffer: np.fromfile's fresh
             # malloc pages fault one by one on hosts that provision lazily
-            from ..utils.native import alloc_array
-            blob = alloc_array(nbytes, np.uint8)
+            blob = native.alloc_array(nbytes, np.uint8)
             got = f.readinto(memoryview(blob)) if nbytes else 0
         if got != nbytes:
             raise IOError(f"Truncated k-mer database {path}: section "

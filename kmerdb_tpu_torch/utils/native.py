@@ -1,10 +1,12 @@
-"""ctypes bindings for the C++ host runtime (native/kmerdb_native.cpp at
-the repo root, shared source of both packages).
+"""ctypes bindings for the C++ host runtime: native/kmerdb_native.cpp at
+the repo root, shared source of both packages, and the port's own host
+sources (csrc/host_load.cpp: the database load's windowed decode).
 
-The shared object is compiled with g++ on first import into the port's
-own build directory, ``kmerdb_tpu_torch/build/host-<hash>/`` (ignored by
-git), keyed on a hash of the source and the flags as the CUDA kernels are
-(ops/_cuda.py), so an edit rebuilds it.  Every entry point the callers use
+The shared object is compiled with g++ from all of them on first import
+into the port's own build directory,
+``kmerdb_tpu_torch/build/host-<hash>/`` (ignored by git), keyed on a hash
+of the sources and the flags as the CUDA kernels are (ops/_cuda.py), so an
+edit of either rebuilds it.  Every entry point the callers use
 has a NumPy fallback, so the package works without a compiler: check
 `available` before relying on speed.
 """
@@ -17,8 +19,10 @@ import subprocess
 
 import numpy as np
 
-_SRC = pathlib.Path(__file__).resolve().parents[2] / "native" / "kmerdb_native.cpp"
-_BUILD_ROOT = pathlib.Path(__file__).resolve().parents[1] / "build"
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+_SRCS = (_PKG.parent / "native" / "kmerdb_native.cpp",
+         _PKG / "csrc" / "host_load.cpp")
+_BUILD_ROOT = _PKG / "build"
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread")
 _LIB_NAME = "libkmerdb_native.so"
 
@@ -27,15 +31,17 @@ available = False
 
 
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256(_SRC.read_bytes())
+    h = hashlib.sha256()
+    for src in _SRCS:
+        h.update(src.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return _BUILD_ROOT / f"host-{h.hexdigest()[:16]}" / _LIB_NAME
 
 
 def _build() -> pathlib.Path | None:
     """The library's path, compiled first when it is missing; None when
-    the source or g++ is absent or the compile fails."""
-    if not _SRC.exists():
+    a source or g++ is absent or the compile fails."""
+    if not all(src.exists() for src in _SRCS):
         return None
     lib = library_path()
     if lib.exists():
@@ -45,7 +51,7 @@ def _build() -> pathlib.Path | None:
     # sees half a file
     tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
     try:
-        subprocess.run(["g++", *_FLAGS, "-o", str(tmp), str(_SRC)],
+        subprocess.run(["g++", *_FLAGS, "-o", str(tmp), *map(str, _SRCS)],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, lib)
         return lib
@@ -158,12 +164,12 @@ def _init():
         ctypes.c_int64, ctypes.c_int64, u32p]
     lib.kmerdb_vb_encode_delta_u64.restype = ctypes.c_int64
     lib.kmerdb_vb_encode_delta_u64.argtypes = [ctypes.c_int64, u64p, u8p]
-    lib.kmerdb_vb_decode_delta_u64.restype = None
-    lib.kmerdb_vb_decode_delta_u64.argtypes = [ctypes.c_int64, u8p, u64p]
     lib.kmerdb_vb_encode_u32.restype = ctypes.c_int64
     lib.kmerdb_vb_encode_u32.argtypes = [ctypes.c_int64, u32p, u8p]
-    lib.kmerdb_vb_decode_u32.restype = None
-    lib.kmerdb_vb_decode_u32.argtypes = [ctypes.c_int64, u8p, u32p]
+    lib.kmerdb_vb_decode_window.restype = ctypes.c_int64
+    lib.kmerdb_vb_decode_window.argtypes = [
+        ctypes.c_int32, u8p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, u64p, i64p, ctypes.c_int32]
     lib.kmerdb_set_threads.restype = None
     lib.kmerdb_set_threads.argtypes = [ctypes.c_int32]
     lib.kmerdb_get_threads.restype = ctypes.c_int32
@@ -560,16 +566,6 @@ def vb_encode_delta_u64(src: np.ndarray, tag: str = "vb64") -> np.ndarray:
     return out[:nb]
 
 
-def vb_decode_delta_u64(blob: np.ndarray, n: int) -> np.ndarray:
-    # bulk-provisioned output: np.empty's fresh pages demand-fault at
-    # ~30us/page on the bench hosts — 3+ s of a scale-db load was page
-    # faults, not decoding
-    out = alloc_array(n, np.uint64)
-    if n:
-        _lib.kmerdb_vb_decode_delta_u64(n, _p(blob, _U8P), _p(out, _U64P))
-    return out
-
-
 def vb_encode_u32(src: np.ndarray, tag: str = "vb32") -> np.ndarray:
     """Plain LEB128 varints of a uint32 stream (pooled per tag; see
     vb_encode_delta_u64)."""
@@ -578,11 +574,25 @@ def vb_encode_u32(src: np.ndarray, tag: str = "vb32") -> np.ndarray:
     return out[:nb]
 
 
-def vb_decode_u32(blob: np.ndarray, n: int) -> np.ndarray:
-    out = alloc_array(n, np.uint32)  # bulk-provisioned (see above)
-    if n:
-        _lib.kmerdb_vb_decode_u32(n, _p(blob, _U8P), _p(out, _U32P))
-    return out
+def vb_decode_window(src: np.ndarray, out: np.ndarray, state: np.ndarray,
+                     threads: int) -> tuple:
+    """(values written, bytes they take up) of one window of a varint
+    section decoded on `threads` threads (csrc/host_load.cpp): the values
+    that end in the uint8 array src, at most out.size of them, into out.
+    A uint32 out takes v32 values, each truncated to 32 bits; a uint64 out
+    the running sums of d64 deltas from state[0] (uint64), which returns
+    the last value written.  The values written are -1 when a value runs
+    past 10 bytes."""
+    if (src.dtype != np.uint8 or out.dtype not in (np.uint32, np.uint64)
+            or state.dtype != np.uint64 or state.size != 1
+            or not (src.flags.c_contiguous and out.flags.c_contiguous)):
+        raise ValueError("vb_decode_window: contiguous uint8 src, uint32 or "
+                         "uint64 out and one uint64 state")
+    used = np.zeros(1, dtype=np.int64)
+    n = _lib.kmerdb_vb_decode_window(
+        int(out.dtype == np.uint64), _p(src, _U8P), src.size, out.size,
+        out.ctypes.data, _p(state, _U64P), _p(used, _I64P), int(threads))
+    return int(n), int(used[0])
 
 
 def one2all_probe(query: np.ndarray, kmers: np.ndarray,
