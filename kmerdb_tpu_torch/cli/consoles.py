@@ -35,8 +35,21 @@ from . import loader
 from .loader import iter_samples
 from .params import UsageError
 
-#: samples per add_samples batch (memory bound)
-_BUILD_BATCH = 1024
+#: samples per add_samples batch at the least (kmerdb_tpu's fixed batch, a
+#: memory bound): a batch never closes before it, so no collection is
+#: built in more batches than at 1,024 samples a batch
+_BUILD_MIN_SAMPLES = 1024
+#: k-mers per add_samples batch: past _BUILD_MIN_SAMPLES a batch stays open
+#: until its samples hold this many (their arrays, 8 bytes a k-mer, 2 GiB;
+#: the build's host peak, set by the last merge, rose 6% with it on a
+#: collection of 16,896 genomes of 30 kbp).  Each batch merges the whole
+#: database so far again, so a collection of small genomes takes fewer
+#: batches; one of genomes above about 260 kbp closes every batch at 1,024
+#: samples, as before.
+_BUILD_KMERS = 1 << 28
+#: samples per batch at the most: the merge's bookkeeping grows with the
+#: streams it merges (collections of very small samples)
+_BUILD_MAX_SAMPLES = 16384
 
 #: queries per new2all batch (kmerdb_tpu's flush size)
 N2A_FLUSH = 512
@@ -45,10 +58,17 @@ N2A_FLUSH = 512
 STREAM_MIN_SAMPLES = 16384
 
 
-def _build_batch_size() -> int:
-    """KMERDB_BUILD_BATCH overrides the batch bound (read per call).  The
-    database bytes do not depend on it."""
-    return int(os.environ.get("KMERDB_BUILD_BATCH", _BUILD_BATCH))
+def _batch_bounds() -> tuple:
+    """(least samples, most samples, k-mers) of a build batch: it closes at
+    the most samples, or at the least once it holds the k-mers.
+    KMERDB_BUILD_BATCH (read per call) sets one number of samples in place
+    of all three.  The database bytes do not depend on them: a pattern is
+    numbered by the first k-mer that holds its sample set, whatever the
+    batches."""
+    env = os.environ.get("KMERDB_BUILD_BATCH")
+    if env is not None:
+        return int(env), int(env), 0
+    return _BUILD_MIN_SAMPLES, _BUILD_MAX_SAMPLES, _BUILD_KMERS
 
 
 def _log(p, *args):
@@ -62,7 +82,8 @@ def _log(p, *args):
 def _add_batch(db, batch):
     """One add_samples batch, through the k-mer-range-sharded build when a
     mesh is active (kmerdb_tpu's _add_batch: the same bytes; under a mesh
-    KMERDB_BUILD_DEVICE has no effect)."""
+    KMERDB_BUILD_DEVICE has no effect).  Counted as build.batches."""
+    trace.add("build.batches", 1)
     mesh = runtime.active_mesh()
     if mesh is not None:
         from ..parallel import sharded
@@ -96,8 +117,9 @@ def run_build(p):
         fraction_start = p.fraction_start
         alphabet_name = p.alphabet_name
 
+    min_samples, max_samples, min_kmers = _batch_bounds()
     with trace.span("build"):
-        batch = []
+        batch, batch_kmers = [], 0
         # the batches added on the way are build.add spans inside it
         with trace.span("build.ingest") as ingested:
             for s in iter_samples(samples_arg, p.input_format, kmer_length,
@@ -120,10 +142,13 @@ def run_build(p):
                     raise RuntimeError(
                         "sample minhash fraction differs from database")
                 batch.append((s.name, s.kmers))
-                if len(batch) >= _build_batch_size():
+                batch_kmers += s.kmers.size
+                if len(batch) >= max_samples or (
+                        len(batch) >= min_samples
+                        and batch_kmers >= min_kmers):
                     with trace.span("build.add"):
                         db = _add_batch(db, batch)
-                    batch = []
+                    batch, batch_kmers = [], 0
         last = trace.span("build.add")
         if batch or db.n_samples == 0:
             with last:
@@ -178,12 +203,17 @@ def _matrix_filter(p, db, query_counts=None):
 
 def _emit_matrix_row(ofs, name, cnt, row, i, filt):
     """One all2all CSV body row (dense, or filter-masked sparse): the
-    single home of the row byte format.  Its format and write seconds go
-    into trace.row_sums, which the enclosing rows span reads."""
+    single home of the row byte format.  Its format and write seconds,
+    and a sparse row's filter seconds, go into trace.row_sums, which the
+    enclosing rows span reads."""
+    sums = trace.row_sums
     if filt is not None:
+        tf = time.perf_counter()
         keep = filt.mask_row(row, i)
         row = np.where(keep, row, 0)
         t0 = time.perf_counter()
+        sums.filter_s += t0 - tf
+        sums.n_filter += 1
         line = csvio.sparse_row(name, cnt, row)
     else:
         t0 = time.perf_counter()
@@ -191,7 +221,6 @@ def _emit_matrix_row(ofs, name, cnt, row, i, filt):
     t1 = time.perf_counter()
     ofs.write(line)
     t2 = time.perf_counter()
-    sums = trace.row_sums
     sums.format_s += t1 - t0
     sums.write_s += t2 - t1
     sums.n += 1

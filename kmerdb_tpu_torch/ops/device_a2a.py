@@ -308,8 +308,13 @@ def all2all_device_rows(db: KmerPatternDb, row_handler,
     holding any are pulled (gather_tiles); cells outside the bounds arrive
     as 0, so the caller passes bounds at least as wide as its own filter.
     A stripe whose survivor tiles would move as many bytes as the stripe is
-    pulled whole instead.  On a CPU device the kernels' plain versions run;
-    a failure on the card propagates to the caller."""
+    pulled whole instead.  The tiles pulled, the tiles and the stripes
+    pulled whole are counted into last_stats["sparse_pull"] and the call's
+    counters device.tiles_pulled, device.tiles_total and
+    device.dense_fallbacks, each 128 x 128 tile of the padded square once
+    (the overlapped rows of the last stripe are not counted again), so
+    tiles_total is (S_pad / 128)^2.  On a CPU device the kernels' plain
+    versions run; a failure on the card propagates to the caller."""
     import torch
     from .. import _torchinit
     dev = torch.device(device) if device is not None \
@@ -353,21 +358,28 @@ def _all2all_device_rows(db: KmerPatternDb, row_handler, stripe_rows,
         else None
     sparse = {"tiles_pulled": 0, "tiles_total": 0, "dense_fallbacks": 0}
 
-    def pull_sparse(C) -> np.ndarray:
+    def pull_sparse(C, first: int) -> np.ndarray:
         """The stripe with every cell outside the bounds zeroed, pulled as
-        its survivor tiles."""
+        its survivor tiles.  The counts take the 128 x 128 tiles of the
+        stripe's tile rows from `first` on, those whose rows it hands out
+        for the first time, so that each tile of the padded square counts
+        once."""
         T = gram.PULL_TILE
         lo, hi = cell_bounds
+        # filter_s times the kernel alone; the counts' copy is a pull
         with events.span("filter_s"):
-            cnts = gram.filter_colsum(C, bounds).cpu().numpy()
+            cnts = gram.filter_colsum(C, bounds)
+        with events.span("pull_s"):
+            cnts = cnts.cpu().numpy()
         tile_cnt = cnts.reshape(stripe_rows // T, S_pad // T, T).sum(2)
         it, jt = np.nonzero(tile_cnt)
-        sparse["tiles_total"] += tile_cnt.size
+        fresh = tile_cnt[first:].size
+        sparse["tiles_total"] += fresh
         if it.size * T * T >= stripe_rows * S_pad:
             # no fewer bytes than the whole stripe: pull it whole, and zero
             # on the host what the survivor pull would have zeroed
             sparse["dense_fallbacks"] += 1
-            sparse["tiles_pulled"] += tile_cnt.size
+            sparse["tiles_pulled"] += fresh
             d = pull_dense(C)
             return np.where((d >= lo) & (d <= hi), d, 0)
         out = np.zeros((stripe_rows, S_pad), dtype=np.uint32)
@@ -381,7 +393,7 @@ def _all2all_device_rows(db: KmerPatternDb, row_handler, stripe_rows,
             tiles = np.where((tiles >= lo) & (tiles <= hi), tiles, 0)
             out.reshape(stripe_rows // T, T, S_pad // T, T) \
                .transpose(0, 2, 1, 3)[it, jt] = tiles
-            sparse["tiles_pulled"] += int(it.size)
+            sparse["tiles_pulled"] += int(np.count_nonzero(it >= first))
         return out
 
     resident_mb = int(os.environ.get("KMERDB_A2A_RESIDENT_MB", "4096"))
@@ -401,11 +413,12 @@ def _all2all_device_rows(db: KmerPatternDb, row_handler, stripe_rows,
             with events.span("gram_s"):
                 gram.gram_u32_pk_rows(Bp, wg, C, rt0, n_limbs=n_limbs, kt=kt,
                                       tile=tile, engine=engine)
-        stripe = pull_sparse(C) if cell_bounds is not None \
-            else pull_dense(C)
         base = rt0 * tile
+        first = max(next_row, base)     # the first row not yet handed out
+        stripe = pull_sparse(C, (first - base) // gram.PULL_TILE) \
+            if cell_bounds is not None else pull_dense(C)
         with trace.rows():
-            for i in range(max(next_row, base), min(base + stripe_rows, S)):
+            for i in range(first, min(base + stripe_rows, S)):
                 row_handler(i, stripe[i - base, :S])
         next_row = min(base + stripe_rows, S)
         if next_row >= S:
@@ -421,6 +434,8 @@ def _all2all_device_rows(db: KmerPatternDb, row_handler, stripe_rows,
         **events.seconds()}
     if cell_bounds is not None:
         stats["sparse_pull"] = dict(sparse)
+        for name, n in sparse.items():
+            trace.add("device." + name, n)
     return stats
 
 

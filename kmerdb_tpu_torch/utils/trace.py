@@ -14,8 +14,9 @@ cli/main.main opens call(mode) around the mode's runner.  Inside it:
   itself, and makes no label in a process that has not.
 * rows() is the span of one burst of CSV rows.  The row writer sums its
   format and write seconds per row into `row_sums` (three reads of the
-  clock a row, nothing allocated); the span hands them to the record as
-  rows.format and rows.write (n and wall alone) and counts the rows.
+  clock a row, nothing allocated), and a sparse row's filter seconds (one
+  read more); the span hands them to the record as rows.format,
+  rows.write and rows.filter (n and wall alone) and counts the rows.
 * add(name, n) adds to a counter.
 * Events(dev) times spans of CUDA work by events on the card; its
   seconds() adds each event pair to the record once, as device.<name>
@@ -145,16 +146,16 @@ def add(name: str, n) -> None:
 
 class _RowSums:
     """The row writer's seconds and counts since the last rows span
-    closed."""
+    closed: every row's format and write, a sparse row's filter."""
 
-    __slots__ = ("format_s", "write_s", "n")
+    __slots__ = ("format_s", "write_s", "n", "filter_s", "n_filter")
 
     def __init__(self):
         self.reset()
 
     def reset(self) -> None:
-        self.format_s = self.write_s = 0.0
-        self.n = 0
+        self.format_s = self.write_s = self.filter_s = 0.0
+        self.n = self.n_filter = 0
 
 
 #: summed into by the row writer (cli/consoles._emit_matrix_row)
@@ -167,12 +168,15 @@ class _Rows(_Span):
     def __exit__(self, *exc):
         rs = row_sums
         # the parts are the rows span's children, timed by the writer
-        self.child += rs.format_s + rs.write_s
+        self.child += rs.format_s + rs.write_s + rs.filter_s
         super().__exit__(*exc)
         if rs.n:
             depth = len(_stack()) + 1
             _close("rows.format", (rs.n, rs.format_s, rs.format_s), depth)
             _close("rows.write", (rs.n, rs.write_s, rs.write_s), depth)
+            if rs.n_filter:
+                _close("rows.filter",
+                       (rs.n_filter, rs.filter_s, rs.filter_s), depth)
             add("rows", rs.n)
         rs.reset()
         return False

@@ -54,9 +54,15 @@ def db(tmp_path_factory):
 
 
 @pytest.fixture
-def streamed(monkeypatch):
+def streamed(monkeypatch, tmp_path):
+    """The device tier on the CPU, the streamed route forced.  No cost
+    calibration: on a machine with a card it would probe the patched
+    device, the CPU, as a card (the fused route commits to its tier
+    first)."""
     monkeypatch.setattr(_torchinit, "device", lambda: torch.device("cpu"))
     monkeypatch.setenv("KMERDB_A2A_STREAM", "1")
+    monkeypatch.setenv("KMERDB_COST_CALIBRATE", "0")
+    monkeypatch.setenv("KMERDB_COST_CACHE_DIR", str(tmp_path / "cost"))
 
 
 def _call(argv) -> tuple:
@@ -89,11 +95,23 @@ def test_streamed_call_leaves_one_record(db, streamed, opts, tmp_path):
     # the parts lie inside their spans
     assert spans["load.read"]["wall_s"] + spans["load.decode"]["wall_s"] \
         <= spans["load"]["wall_s"]
-    assert spans["rows.format"]["wall_s"] + spans["rows.write"]["wall_s"] \
-        <= spans["rows"]["wall_s"]
+    parts = ("rows.format", "rows.write") + (("rows.filter",) if opts
+                                            else ())
+    assert sum(spans[p]["wall_s"] for p in parts) <= spans["rows"]["wall_s"]
     assert spans["output"]["n"] == 2
     assert spans["rows.format"]["n"] == S
-    assert rec["counters"] == {"rows": S}
+    # a sparse row's filter is a part of its own; a dense row has none
+    assert ("rows.filter" in spans) == bool(opts)
+    if opts:
+        assert spans["rows.filter"]["n"] == S
+        # the sparse pull's tiles, each tile of the padded square once
+        sp = device_a2a.last_stats["sparse_pull"]
+        assert rec["counters"] == {
+            "rows": S, **{"device." + k: v for k, v in sp.items()}}
+        assert sp["tiles_total"] == (device_a2a.last_stats["S_pad"]
+                                     // 128) ** 2
+    else:
+        assert rec["counters"] == {"rows": S}
     assert 0 <= rec["unattributed_s"] <= rec["wall_s"]
     json.dumps(rec)
 
